@@ -1,0 +1,31 @@
+"""fspt_tpu_torch — the PyTorch + CUDA port of fspt_tpu for NVIDIA Hopper.
+
+The same progressive Monte-Carlo path tracer as fspt_tpu (which stays the
+JAX reference): the host scene compiler is a jax-free copy, the device code
+is PyTorch, and BVH traversal is a hand-written CUDA kernel
+(csrc/traverse4.cu) behind ops/traverse4.py.  Nothing here imports JAX.
+
+Public API:
+    fspt_tpu_torch.load_scene_dict(d, loader) / load_scene_file(path)
+    fspt_tpu_torch.Renderer(scene, config, device="cuda")
+    fspt_tpu_torch.render(scene, config, device="cuda")
+"""
+
+__version__ = "0.1.0"
+
+from fspt_tpu_torch.config import CameraConfig, PostConfig, RenderConfig
+from fspt_tpu_torch.runtime.renderer import Renderer, render
+from fspt_tpu_torch.scene.schema import (Scene, load_scene_dict,
+                                         load_scene_file, scene_to_torch)
+
+__all__ = [
+    "RenderConfig",
+    "PostConfig",
+    "CameraConfig",
+    "load_scene_file",
+    "load_scene_dict",
+    "scene_to_torch",
+    "Scene",
+    "Renderer",
+    "render",
+]

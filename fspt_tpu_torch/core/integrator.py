@@ -1,0 +1,819 @@
+"""The path-tracing integrator: port of the main-path functions of
+fspt_tpu.core.integrator (the wavefront estimator of reference
+shader/tracer.fs:436-518).
+
+The estimator is the JAX version's, function for function and expression
+for expression: the same sampling strategies, MIS, compaction, state sort
+and cross-sample wavefront batching, driven by the same counter-based RNG
+streams (core/rng.py), so on the same scene, rays and keys the two agree up
+to float32 rounding.  What changes is idiom:
+
+  * `lax.scan` over bounce iterations becomes a Python loop, and the
+    per-iteration stats are stacked at the end;
+  * `jax.tree.map` over path states becomes explicit concatenation;
+  * `lax.sort((key, arange))` becomes a stable `torch.sort` (equal, since
+    the lane ids break ties in index order);
+  * stop_gradient disappears: this slice renders, it does not
+    differentiate (gradients are ROADMAP A12);
+  * traversal goes through ops/traverse4.packet_traverse4: the CUDA kernel
+    for tensors on a card, its plain version on the CPU.
+
+Off-slice configurations raise NotImplementedError naming their ROADMAP
+entry: light NEE and split shadow launches (A11), the BVH heatmap mode
+(A11, needs kernel B2) and intersectors other than "split" (B2, B3, A2).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from fspt_tpu_torch.config import RenderConfig
+from fspt_tpu_torch.core import brdf
+from fspt_tpu_torch.core import rng
+from fspt_tpu_torch.core import vec
+from fspt_tpu_torch.core.env import (env_radiance_rows,
+                                     env_radiance_rows_nearest,
+                                     pack_env_rows, sample_env_bins,
+                                     sample_env_bins_radiance)
+from fspt_tpu_torch.core.rng import stream_uniforms
+from fspt_tpu_torch.core.vec import V3, dot, normalize, where
+from fspt_tpu_torch.ops.traverse4 import PacketHit, packet_traverse4
+
+
+def check_config(cfg: RenderConfig):
+    """Raise for the configuration branches this slice does not port."""
+    if cfg.intersector != "split":
+        raise NotImplementedError(
+            f"intersector={cfg.intersector!r} is not ported: 'walk' and "
+            "'packet' wait for kernels B2/B3 and 'brute' for A2 (ROADMAP); "
+            "use intersector='split'")
+    if cfg.use_light_nee:
+        raise NotImplementedError(
+            "use_light_nee is not ported yet (ROADMAP A11)")
+    if cfg.split_shadow:
+        raise NotImplementedError(
+            "split_shadow is not ported yet (ROADMAP A11)")
+    if cfg.mode != "render":
+        raise NotImplementedError(
+            f"mode={cfg.mode!r} is not ported yet (ROADMAP A11, needs "
+            "kernel B2's lane counts)")
+
+
+def intersect(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
+              tmax=None, any_hit: bool = False) -> PacketHit:
+    """Nearest-hit (or any-hit) traversal through the traverse4 kernel.
+
+    The stack gets 2*width entries of slack over the tree's bound, as in
+    the JAX version; the port's kernel raises instead of dropping a push
+    past it.  The TPU's VMEM table budget does not apply (the tables stay
+    in device memory), so "split" takes tables of any size."""
+    check_config(cfg)
+    width = meta.bvh_width
+    contig = lambda v: V3(*(p.contiguous() for p in v))
+    return packet_traverse4(
+        scene.pk_nodes, scene.pk_leaves, contig(origin), contig(direction),
+        tmax.contiguous() if tmax is not None else None,
+        leaf_size=meta.leaf_size, any_hit=any_hit,
+        stack_depth=max(cfg.stack_depth, meta.pk_stack_depth) + 2 * width,
+        tree_width=width)
+
+
+def _morton21(x, y, z):
+    """21-bit Morton code from three [0,1) floats (7 bits/axis)."""
+    def q(a):
+        return torch.clamp((a * 128.0).to(torch.int32), 0, 127)
+    qx, qy, qz = q(x), q(y), q(z)
+    code = torch.zeros_like(qx)
+    for b in range(7):
+        code = (code
+                | (((qx >> b) & 1) << (3 * b + 2))
+                | (((qy >> b) & 1) << (3 * b + 1))
+                | (((qz >> b) & 1) << (3 * b)))
+    return code
+
+
+def _scene_box(scene):
+    wmin = scene.node_min[0]
+    extent = torch.clamp(scene.node_max[0] - wmin, min=1e-6)
+    return wmin, extent
+
+
+def sorted_intersect(scene, cfg: RenderConfig, meta, origin: V3,
+                     direction: V3, active, tmax=None,
+                     any_hit: bool = False) -> PacketHit:
+    """Traversal with coherence sorting of the launch: rays sorted by
+    (origin Morton code << 3 | direction octant), inactive lanes last, hits
+    un-permuted afterwards.  With cfg.sort_state the path state is already
+    in Morton order (_sort_state), so launches go out unsorted."""
+    if not cfg.sort_rays or cfg.sort_state:
+        return intersect(scene, cfg, meta, origin, direction, tmax=tmax,
+                         any_hit=any_hit)
+    n = origin.x.shape[0]
+    octant = ((direction.x < 0).to(torch.int32) * 4
+              + (direction.y < 0).to(torch.int32) * 2
+              + (direction.z < 0).to(torch.int32))
+    wmin, extent = _scene_box(scene)
+    morton = _morton21((origin.x - wmin[0]) / extent[0],
+                       (origin.y - wmin[1]) / extent[1],
+                       (origin.z - wmin[2]) / extent[2])
+    key = torch.where(active, (morton << 3) | octant,
+                      torch.full_like(morton, 1 << 30))
+    if tmax is None:
+        tmax = torch.full((n,), cfg.max_t, dtype=torch.float32,
+                          device=origin.x.device)
+    perm = torch.sort(key, stable=True).indices
+    rays = torch.stack([origin.x, origin.y, origin.z, direction.x,
+                        direction.y, direction.z, tmax], dim=-1)[perm]
+    hit = intersect(scene, cfg, meta,
+                    V3(rays[:, 0], rays[:, 1], rays[:, 2]),
+                    V3(rays[:, 3], rays[:, 4], rays[:, 5]),
+                    tmax=rays[:, 6], any_hit=any_hit)
+    # slot/visits ride the f32 rows exactly (values < 2^24)
+    packed = torch.stack([hit.t, hit.slot.to(torch.float32), hit.u, hit.v,
+                          hit.visits.to(torch.float32)], dim=-1)
+    out = torch.zeros_like(packed)
+    out[perm] = packed
+    return PacketHit(t=out[:, 0], slot=out[:, 1].to(torch.int32),
+                     u=out[:, 2], v=out[:, 3],
+                     visits=out[:, 4].to(torch.int32))
+
+
+def atlas_fetch_rgb(meta, layer, u, v, rows) -> V3:
+    """Bilinear RGB fetch from the (L*R*R, 3) atlas row table with REPEAT
+    wrap; v=0 maps to the image bottom row.  layer: (N,) int."""
+    r = meta.atlas_res
+    x = u * r - 0.5
+    y = (1.0 - v) * r - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    x0 = torch.remainder(x0f.to(torch.int32), r)
+    x1 = torch.remainder(x0 + 1, r)
+    y0 = torch.remainder(y0f.to(torch.int32), r)
+    y1 = torch.remainder(y0 + 1, r)
+    base = layer * (r * r)
+    i00 = base + y0 * r + x0
+    i10 = base + y0 * r + x1
+    i01 = base + y1 * r + x0
+    i11 = base + y1 * r + x1
+    w00 = (1 - fx) * (1 - fy)
+    w10 = fx * (1 - fy)
+    w01 = (1 - fx) * fy
+    w11 = fx * fy
+    out = (rows[i00] * w00[:, None] + rows[i10] * w10[:, None]
+           + rows[i01] * w01[:, None] + rows[i11] * w11[:, None])
+    return V3(out[:, 0], out[:, 1], out[:, 2])
+
+
+class TexTables(NamedTuple):
+    """Loop-invariant texture tables, built once per traced sample.
+
+      mat_tex: (U*R*R, 24) — the four material maps of each combined
+          material plus the x-neighbour texel's (a bilinear fetch of all
+          four maps is 2 row gathers); None above the memory guard, when
+          the per-map atlas_rows path is used instead.
+      env6: (H*W, 6) — x-neighbour-packed environment map.
+      bins4: (B, 4) — env importance bins as rows.
+      atlas_rows: (L*R*R, 3) — per-map fallback table.
+    """
+
+    mat_tex: Optional[torch.Tensor]
+    env6: torch.Tensor
+    bins4: torch.Tensor
+    atlas_rows: torch.Tensor
+
+
+# Packed-material-table memory guard: combined (U, R, R, 24) f32 texels.
+_MAT_TEX_BUDGET_BYTES = 2 * 1024 ** 3
+
+
+def _packed_tables(scene, cfg: RenderConfig, meta) -> TexTables:
+    atlas_rows = torch.stack([scene.atlas_r, scene.atlas_g, scene.atlas_b],
+                             dim=-1)
+    r = meta.atlas_res
+    n_mat = scene.mat_layers.shape[0]
+    mat_tex = None
+    if cfg.packed_textures and n_mat * r * r * 24 * 4 <= _MAT_TEX_BUDGET_BYTES:
+        layers = atlas_rows.reshape(meta.atlas_layers, r, r, 3)
+        combo = torch.cat(
+            [layers[scene.mat_layers[:, k].long()] for k in range(4)], dim=-1)
+        nxt = torch.roll(combo, -1, dims=2)        # x-neighbor, REPEAT wrap
+        mat_tex = torch.cat([combo, nxt], dim=-1).reshape(n_mat * r * r, 24)
+    env6 = pack_env_rows(scene.env_rgb, (meta.env_h, meta.env_w))
+    bins4 = torch.stack([scene.bin_x0, scene.bin_y0, scene.bin_x1,
+                         scene.bin_y1], dim=-1)
+    return TexTables(mat_tex=mat_tex, env6=env6, bins4=bins4,
+                     atlas_rows=atlas_rows)
+
+
+def atlas_fetch_all(mat_tex, meta, map_c, u, v):
+    """Bilinear fetch of all four material maps from the packed
+    (U*R*R, 24) table: 2 row gathers.  Returns (diffuse, emissive,
+    normal_rgb, mr)."""
+    r = meta.atlas_res
+    x = u * r - 0.5
+    y = (1.0 - v) * r - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx = (x - x0f)[:, None]
+    fy = (y - y0f)[:, None]
+    x0 = torch.remainder(x0f.to(torch.int32), r)
+    y0 = torch.remainder(y0f.to(torch.int32), r)
+    y1 = torch.remainder(y0 + 1, r)
+    base = map_c * (r * r)
+    r0 = mat_tex[base + y0 * r + x0]
+    r1 = mat_tex[base + y1 * r + x0]
+    top = r0[:, 0:12] * (1 - fx) + r0[:, 12:24] * fx
+    bot = r1[:, 0:12] * (1 - fx) + r1[:, 12:24] * fx
+    out = top * (1 - fy) + bot * fy
+    c3 = lambda i: V3(out[:, i], out[:, i + 1], out[:, i + 2])
+    return c3(0), c3(3), c3(6), c3(9)
+
+
+class PathState(NamedTuple):
+    origin: V3                    # (W,) planes
+    direction: V3
+    t: torch.Tensor               # (W,) current-hit distance
+    slot: torch.Tensor            # (W,) i32 current-hit slot (-1 miss)
+    bu: torch.Tensor              # (W,) hit barycentric (corner 1)
+    bv: torch.Tensor              # (W,) hit barycentric (corner 2)
+    throughput: V3
+    color: V3                     # radiance gathered along the path so far
+    bounces_used: torch.Tensor    # (W,) i32
+    active: torch.Tensor          # (W,) bool
+    prev_pdf: torch.Tensor        # (W,) pdf of the ray that made this hit
+    lidx: torch.Tensor            # (W,) i32 framebuffer lane
+    gid: torch.Tensor             # (W,) i32 global RNG lane id
+
+
+class TraceStats(NamedTuple):
+    """Per-sample counts.  rays counts active lanes only (primary + live
+    scatter/shadow segments); visits sums the rays' own node+leaf fetches
+    (ops/traverse4: per ray, not per 128-ray walk as on the TPU)."""
+
+    rays: torch.Tensor        # () f32
+    active: torch.Tensor      # (max_iters,) f32 live scatter lanes per it
+    shadow: torch.Tensor      # (max_iters,) f32 live shadow lanes per it
+    visits: torch.Tensor      # (max_iters,) f32 summed visits of scatter rays
+    rr_lanes: torch.Tensor    # () f32 active lanes dropped by compaction
+
+
+# RNG stream id base for compaction survivor selection (streams 1..max_iters
+# are the shading streams)
+_RR_STREAM = 64
+
+# float state planes moved by one row gather (_take)
+_F_FIELDS = ("origin", "direction", "t", "bu", "bv", "throughput", "color",
+             "prev_pdf")
+
+
+def _take(state: PathState, idx) -> PathState:
+    """Rows `idx` of every state plane: one (W, 16) float row gather and one
+    (W, 5) int row gather, as the JAX version stacks them."""
+    f = []
+    for name in _F_FIELDS:
+        a = getattr(state, name)
+        f.extend(a if isinstance(a, V3) else [a])
+    frows = torch.stack(f, dim=-1)[idx]
+    irows = torch.stack([state.slot, state.bounces_used,
+                         state.active.to(torch.int32), state.lidx,
+                         state.gid], dim=-1)[idx]
+    return PathState(
+        origin=V3(frows[:, 0], frows[:, 1], frows[:, 2]),
+        direction=V3(frows[:, 3], frows[:, 4], frows[:, 5]),
+        t=frows[:, 6], bu=frows[:, 7], bv=frows[:, 8],
+        throughput=V3(frows[:, 9], frows[:, 10], frows[:, 11]),
+        color=V3(frows[:, 12], frows[:, 13], frows[:, 14]),
+        prev_pdf=frows[:, 15],
+        slot=irows[:, 0], bounces_used=irows[:, 1], active=irows[:, 2] > 0,
+        lidx=irows[:, 3], gid=irows[:, 4])
+
+
+def _cat_states(states) -> PathState:
+    out = {}
+    for name in PathState._fields:
+        parts = [getattr(s, name) for s in states]
+        out[name] = (vec.cat(parts) if isinstance(parts[0], V3)
+                     else torch.cat(parts))
+    return PathState(**out)
+
+
+def _compact(state: PathState, key, it: int, w_out: int,
+             key_rows=None, lanes_per_key: int = 0,
+             stream_base: int = _RR_STREAM):
+    """Shrink the path state to `w_out` lanes, unbiasedly: the survivors
+    are a uniform random min(A, w_out)-subset of the A active lanes
+    (smallest per-lane RNG key wins), reweighted by A / w_out when
+    A > w_out (Russian roulette).  When A <= w_out every active lane
+    survives with weight 1 and the estimator is unchanged lane for lane.
+    Dropped lanes come back as (lidx, color) rows for the caller's single
+    end-of-trace deposit."""
+    w_in = state.lidx.shape[0]
+    active = state.active
+    n_active = active.to(torch.int32).sum()
+    u = stream_uniforms(key, stream_base + it, (1, w_in),
+                        lane_offset=state.gid, key_rows=key_rows,
+                        lanes_per_key=lanes_per_key)[0]
+    skey = torch.where(active, u, torch.full_like(u, 2.0))
+    perm = torch.sort(skey, stable=True).indices
+    new = _take(state, perm[:w_out])
+    sel_drop = perm[w_out:]
+    drop_lidx = state.lidx[sel_drop]
+    drop_color = vec.to_array(state.color)[sel_drop]
+    scale = torch.where(n_active > w_out,
+                        n_active.to(torch.float32) / float(w_out),
+                        torch.ones((), device=u.device))
+    rr_dropped = torch.clamp(n_active - w_out, min=0).to(torch.float32)
+    new = new._replace(throughput=new.throughput * scale)
+    return new, (drop_lidx, drop_color), rr_dropped
+
+
+def _sort_state(scene, state: PathState) -> PathState:
+    """Reorder the whole path state into Morton order of the current hit
+    points (inactive lanes last), so every traversal launch of the
+    iteration goes out coherent and its hits come back aligned.
+    Estimator-neutral: RNG is keyed by gid and deposits by lidx."""
+    hit_p = state.origin + state.direction * state.t
+    wmin, extent = _scene_box(scene)
+    morton = _morton21((hit_p.x - wmin[0]) / extent[0],
+                       (hit_p.y - wmin[1]) / extent[1],
+                       (hit_p.z - wmin[2]) / extent[2])
+    key = torch.where(state.active, morton, torch.full_like(morton, 1 << 30))
+    return _take(state, torch.sort(key, stable=True).indices)
+
+
+def _compact_groups(cfg: RenderConfig, n: int):
+    """Run-length-encode the compaction schedule into (width, n_iters)
+    groups; widths are rounded up to a multiple of 1024."""
+    sched = cfg.compact_schedule
+    groups = []
+    prev_w = n
+    for it in range(cfg.max_iters):
+        div = sched[min(it, len(sched) - 1)]
+        w = min(prev_w, math.ceil(n / div / 1024) * 1024, n)
+        if groups and w == groups[-1][0]:
+            groups[-1][1] += 1
+        else:
+            groups.append([w, 1])
+        prev_w = w
+    return groups
+
+
+def _check_streams(cfg: RenderConfig):
+    check_config(cfg)
+    if cfg.max_iters >= _RR_STREAM:
+        raise ValueError(
+            f"max_iters={cfg.max_iters} collides with the compaction RNG "
+            f"stream base {_RR_STREAM}; lower bounces/extra_refraction_iters")
+
+
+def _primary_state(scene, cfg, meta, tex, origin, direction, lidx, gid):
+    env_hw = (meta.env_h, meta.env_w)
+    n = origin.x.shape[0]
+    primary = intersect(scene, cfg, meta, origin, direction)
+    miss = primary.slot < 0
+    zero = vec.splat(0.0, like=origin.x)
+    color = where(miss, env_radiance_rows(tex.env6, env_hw, direction,
+                                          scene.env_theta), zero)
+    return PathState(
+        origin=origin, direction=direction, t=primary.t, slot=primary.slot,
+        bu=primary.u, bv=primary.v,
+        throughput=vec.splat(1.0, like=origin.x), color=color,
+        bounces_used=torch.zeros(n, dtype=torch.int32,
+                                 device=origin.x.device),
+        active=~miss,
+        prev_pdf=torch.full((n,), 1.0e16, dtype=torch.float32,
+                            device=origin.x.device),
+        lidx=lidx, gid=gid)
+
+
+def _bounce(scene, cfg, meta, attr, tex, state, it, key, key_rows=None,
+            lanes_per_key=0):
+    """One bounce iteration: optional state sort, the iteration's
+    uniforms, shading and the traversal launch."""
+    if cfg.sort_state:
+        state = _sort_state(scene, state)
+    w = state.lidx.shape[0]
+    u = stream_uniforms(key, 1 + it, (11, w), lane_offset=state.gid,
+                        key_rows=key_rows, lanes_per_key=lanes_per_key)
+    return _shade_and_scatter(scene, cfg, meta, state, u,
+                              (meta.env_h, meta.env_w), attr, tex)
+
+
+def _stack_stats(per_it):
+    return tuple(torch.stack([p[i] for p in per_it]) for i in range(3))
+
+
+def _deposit(drops, state, n):
+    """One scatter writes every framebuffer lane exactly once: the dropped
+    rows of every compaction plus the final survivors."""
+    all_idx = torch.cat([d[0] for d in drops] + [state.lidx]).long()
+    all_col = torch.cat([d[1] for d in drops] + [vec.to_array(state.color)])
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=all_col.device)
+    acc[all_idx] = all_col
+    return acc
+
+
+def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
+                key, lane_offset=0, return_stats: bool = False):
+    """Path-trace one sample for every input ray.  Returns V3 (N,) radiance
+    (or (radiance, TraceStats) when return_stats).  key: host key data
+    (core/rng.py).  lane_offset: global lane id of ray 0, or an (N,) tensor
+    of explicit ids."""
+    _check_streams(cfg)
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    if torch.is_tensor(lane_offset):
+        gid0 = lane_offset.to(torch.int32)
+    else:
+        gid0 = int(lane_offset) + torch.arange(n, dtype=torch.int32,
+                                               device=dev)
+    tex = _packed_tables(scene, cfg, meta)
+    attr = _attr_table(scene)
+    state = _primary_state(scene, cfg, meta, tex, origin, direction,
+                           torch.arange(n, dtype=torch.int32, device=dev),
+                           gid0)
+
+    rr_lanes = torch.zeros((), dtype=torch.float32, device=dev)
+    per_it = []
+    if not cfg.compact:
+        for it in range(cfg.max_iters):
+            state, p = _bounce(scene, cfg, meta, attr, tex, state, it, key)
+            per_it.append(p)
+        if cfg.sort_state:
+            # state lanes are in Morton order; map colors back to rays
+            out = _deposit([], state, n)
+            c = V3(out[:, 0], out[:, 1], out[:, 2])
+        else:
+            c = state.color
+    else:
+        drops = []
+        it0 = 0
+        for w, count in _compact_groups(cfg, n):
+            if w < state.lidx.shape[0]:
+                state, drop, dropped = _compact(state, key, it0, w)
+                drops.append(drop)
+                rr_lanes = rr_lanes + dropped
+            for it in range(it0, it0 + count):
+                state, p = _bounce(scene, cfg, meta, attr, tex, state, it,
+                                   key)
+                per_it.append(p)
+            it0 += count
+        acc = _deposit(drops, state, n)
+        c = V3(acc[:, 0], acc[:, 1], acc[:, 2])
+
+    radiance = V3(torch.clamp(c.x, 0.0, cfg.radiance_clamp),
+                  torch.clamp(c.y, 0.0, cfg.radiance_clamp),
+                  torch.clamp(c.z, 0.0, cfg.radiance_clamp))
+    if not return_stats:
+        return radiance
+    n_active, n_shadow, visits = _stack_stats(per_it)
+    stats = TraceStats(rays=float(n) + n_active.sum() + n_shadow.sum(),
+                       active=n_active, shadow=n_shadow, visits=visits,
+                       rr_lanes=rr_lanes)
+    return radiance, stats
+
+
+def _merged_groups(cfg: RenderConfig, n_per: int, n_tot: int):
+    """Split the schedule into per-sample groups (phase A, widths above
+    cfg.wavefront_merge_width) and merged groups realigned to the combined
+    lane count (phase B)."""
+    groups = _compact_groups(cfg, n_per)
+    merged = _compact_groups(cfg, n_tot)
+    split = len(groups)
+    for gi, (w, _) in enumerate(groups):
+        if w <= cfg.wavefront_merge_width:
+            split = gi
+            break
+    groups_a = groups[:split]
+    its_a = sum(c for _, c in groups_a)
+    groups_b = []
+    itx = 0
+    for w, count in merged:
+        take = max(0, min(count, itx + count - its_a))
+        if take and itx + count > its_a:
+            groups_b.append([w, take])
+        itx += count
+    return groups_a, its_a, groups_b
+
+
+def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
+                        direction: V3, batch_key, n_per: int,
+                        return_stats: bool = False):
+    """Cross-sample wavefront batch: K = n_total / n_per samples traced so
+    their compacted tails share launches.
+
+    Phase A runs the iterations whose per-sample width exceeds
+    cfg.wavefront_merge_width per sample, exactly like K sequential
+    trace_paths calls (sample k keyed fold_in(batch_key, k)).  The K
+    compacted states then concatenate into one state for the remaining
+    iterations, whose uniforms are keyed by (key_rows[lane // n_per],
+    lane % n_per) — bit-identical to the unbatched streams, so the batch
+    reproduces K sequential trace_paths calls whenever RR does not fire.
+
+    Returns the SUM over the K samples of their (clamped) radiance as V3
+    (n_per,) planes (and TraceStats when return_stats)."""
+    n_tot = origin.x.shape[0]
+    k_samples = n_tot // n_per
+    if k_samples * n_per != n_tot:
+        raise ValueError(f"{n_tot} rays are not a whole number of "
+                         f"{n_per}-ray samples")
+    _check_streams(cfg)
+    dev = origin.x.device
+    key_rows = rng.key_rows_tensor(rng.key_rows_for(batch_key, k_samples),
+                                   dev)
+    tex = _packed_tables(scene, cfg, meta)
+    attr = _attr_table(scene)
+    groups_a, its_a, groups_b = _merged_groups(cfg, n_per, n_tot)
+
+    states, per_a, rr, drops = [], [], [], []
+    for k in range(k_samples):
+        lanes = slice(k * n_per, (k + 1) * n_per)
+        o = V3(origin.x[lanes], origin.y[lanes], origin.z[lanes])
+        d = V3(direction.x[lanes], direction.y[lanes], direction.z[lanes])
+        skey = rng.fold_in(batch_key, k)
+        local = torch.arange(n_per, dtype=torch.int32, device=dev)
+        state = _primary_state(scene, cfg, meta, tex, o, d,
+                               k * n_per + local, local)
+        per_k = []
+        it0 = 0
+        for w, count in groups_a:
+            if w < state.lidx.shape[0]:
+                state, drop, dropped = _compact(state, skey, it0, w)
+                drops.append(drop)
+                rr.append(dropped)
+            for it in range(it0, it0 + count):
+                state, p = _bounce(scene, cfg, meta, attr, tex, state, it,
+                                   skey)
+                per_k.append(p)
+            it0 += count
+        per_a.append(per_k)
+        # shrink to the merged phase's per-sample share before stacking,
+        # with the sample's own key; stream base _RR_STREAM + max_iters
+        # keeps this draw independent of a second compaction at the same
+        # iteration in the merged phase (see the JAX version)
+        if groups_b:
+            w_b = -(-groups_b[0][0] // k_samples)
+            if w_b < state.lidx.shape[0]:
+                state, drop, dropped = _compact(
+                    state, skey, it0, w_b,
+                    stream_base=_RR_STREAM + cfg.max_iters)
+                drops.append(drop)
+                rr.append(dropped)
+        # globalize gid for the merged phase's key_rows lookup
+        states.append(state._replace(gid=k * n_per + state.gid))
+
+    rr_lanes = (torch.stack(rr).sum() if rr
+                else torch.zeros((), dtype=torch.float32, device=dev))
+    # phase-A stats summed over the batch, per iteration
+    per_it = [tuple(sum(per_a[k][i][j] for k in range(k_samples))
+                    for j in range(3)) for i in range(its_a)]
+
+    state = _cat_states(states)
+    it0 = its_a
+    for w, count in groups_b:
+        if w < state.lidx.shape[0]:
+            state, drop, dropped = _compact(state, batch_key, it0, w,
+                                            key_rows=key_rows,
+                                            lanes_per_key=n_per)
+            drops.append(drop)
+            rr_lanes = rr_lanes + dropped
+        for it in range(it0, it0 + count):
+            state, p = _bounce(scene, cfg, meta, attr, tex, state, it,
+                               batch_key, key_rows=key_rows,
+                               lanes_per_key=n_per)
+            per_it.append(p)
+        it0 += count
+    acc = _deposit(drops, state, n_tot)
+
+    # per-sample radiance clamp, then sum over the batch
+    c = torch.clamp(acc.reshape(k_samples, n_per, 3), 0.0,
+                    cfg.radiance_clamp)
+    total = c.sum(dim=0)
+    radiance = V3(total[:, 0], total[:, 1], total[:, 2])
+    if not return_stats:
+        return radiance
+    n_active, n_shadow, visits = _stack_stats(per_it)
+    stats = TraceStats(rays=float(n_tot) + n_active.sum() + n_shadow.sum(),
+                       active=n_active, shadow=n_shadow, visits=visits,
+                       rr_lanes=rr_lanes)
+    return radiance, stats
+
+
+def traversal_launches(cfg: RenderConfig, n_per: int, k_samples: int) -> int:
+    """Traversal launches one trace_paths_batched call makes: one primary
+    launch per sample plus one scatter+shadow launch per bounce iteration
+    (per sample in phase A, shared in phase B)."""
+    _, its_a, groups_b = _merged_groups(cfg, n_per, n_per * k_samples)
+    return k_samples * (1 + its_a) + sum(c for _, c in groups_b)
+
+
+def _corner_lerp(c0: V3, c1: V3, c2: V3, w0, u, v) -> V3:
+    return c0 * w0 + c1 * u + c2 * v
+
+
+def _attr_table(scene):
+    """The (S, 43) per-slot shading-attribute row table, fetched with one
+    row gather per bounce."""
+    return torch.stack([
+        scene.nrm0.x, scene.nrm0.y, scene.nrm0.z,
+        scene.nrm1.x, scene.nrm1.y, scene.nrm1.z,
+        scene.nrm2.x, scene.nrm2.y, scene.nrm2.z,
+        scene.tan0.x, scene.tan0.y, scene.tan0.z,
+        scene.tan1.x, scene.tan1.y, scene.tan1.z,
+        scene.tan2.x, scene.tan2.y, scene.tan2.z,
+        scene.btn0.x, scene.btn0.y, scene.btn0.z,
+        scene.btn1.x, scene.btn1.y, scene.btn1.z,
+        scene.btn2.x, scene.btn2.y, scene.btn2.z,
+        scene.uv0u, scene.uv0v, scene.uv1u, scene.uv1v,
+        scene.uv2u, scene.uv2v,
+        scene.emit.x, scene.emit.y, scene.emit.z,
+        scene.ior, scene.dielectric,
+        # atlas layer ids as f32 (exact below 2^24 layers)
+        scene.map_d.to(torch.float32), scene.map_e.to(torch.float32),
+        scene.map_n.to(torch.float32), scene.map_mr.to(torch.float32),
+        scene.map_c.to(torch.float32),
+    ], dim=-1)
+
+
+def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
+                       env_hw, attr, tex: TexTables):
+    """One shading+scatter iteration (tracer.fs:447-518): hit attributes,
+    atlas fetches, emissive add, lobe choice, env NEE with MIS, and ONE
+    traversal launch of the scatter rays and env shadow rays together."""
+    active = s.active & (s.slot >= 0)
+    slot = torch.clamp(s.slot, min=0)
+
+    # ---- gather hit attributes: ONE (N, 43) row gather -----------------
+    row = attr[slot]
+
+    def col3(i):
+        return V3(row[:, i], row[:, i + 1], row[:, i + 2])
+
+    emitt = col3(33)
+    ior = row[:, 36]
+    dielectric = row[:, 37]
+    bu, bv = s.bu, s.bv
+    w0 = 1.0 - bu - bv
+    tex_u = row[:, 27] * w0 + row[:, 29] * bu + row[:, 31] * bv
+    tex_v = row[:, 28] * w0 + row[:, 30] * bu + row[:, 32] * bv
+    bary_n = _corner_lerp(col3(0), col3(3), col3(6), w0, bu, bv)
+    bary_t = _corner_lerp(col3(9), col3(12), col3(15), w0, bu, bv)
+    bary_bt = _corner_lerp(col3(18), col3(21), col3(24), w0, bu, bv)
+
+    # ---- atlas fetches (tracer.fs:453-456) -----------------------------
+    if tex.mat_tex is not None:
+        map_c = row[:, 42].to(torch.int32)
+        tex_diffuse, tex_emissive, tn, mr = atlas_fetch_all(
+            tex.mat_tex, meta, map_c, tex_u, tex_v)
+    else:
+        ar = tex.atlas_rows
+        fetch = lambda col: atlas_fetch_rgb(
+            meta, row[:, col].to(torch.int32), tex_u, tex_v, ar)
+        tex_diffuse, tex_emissive = fetch(38), fetch(39)
+        mr, tn = fetch(41), fetch(40)
+    metallic, roughness = mr.x, mr.y * mr.y              # tracer.fs:457
+    tex_normal = V3((tn.x - 0.5) * 2.0, (tn.y - 0.5) * 2.0, tn.z)
+
+    # ---- shading frame (tracer.fs:332-337,459-463) --------------------
+    macro_n = normalize(bary_t * tex_normal.x + bary_bt * tex_normal.y
+                        + bary_n * tex_normal.z)
+    inside = dot(-s.direction, bary_n) < 0.0
+    n1 = torch.where(inside, ior, 1.0)
+    n2 = torch.where(inside, 1.0, ior)
+    macro_n = where(inside, -macro_n, macro_n)
+    hit_p = s.origin + s.direction * s.t
+    offset_out = hit_p + macro_n * (cfg.epsilon * 2.0)
+
+    # ---- emissive (tracer.fs:467) -------------------------------------
+    zero = vec.splat(0.0, like=u[0])
+    emit_add = (s.throughput * tex_emissive * tex_diffuse
+                * cfg.emissive_scale + s.throughput * emitt)
+    color = s.color + where(active, emit_add, zero)
+
+    incident = -s.direction
+
+    # ---- samples -------------------------------------------------------
+    micro_n = brdf.sample_microfacet(macro_n, roughness, u[0], u[1])
+    if cfg.nee_env_nearest:
+        env_dir, env_pdf, nee_rad = sample_env_bins_radiance(
+            tex.bins4, tex.env6, scene.n_bins, env_hw, scene.env_theta,
+            u[2], u[3], u[4])
+    else:
+        env_dir, env_pdf = sample_env_bins(
+            tex.bins4, scene.n_bins, env_hw, scene.env_theta,
+            u[2], u[3], u[4])
+        nee_rad = None
+    cos_env = dot(macro_n, env_dir)
+
+    fresnel = brdf.schlick(incident, micro_n, n1, n2)
+    p_specular = fresnel * (1.0 - metallic) + metallic   # mix(f, 1, metallic)
+    specular = p_specular > u[5]
+    refractive = ~specular & (dielectric >= 0.0)
+
+    # specular branch
+    spec_dir = brdf.reflect(-incident, micro_n)
+    spec_pdf = brdf.gtr2_pdf(incident, macro_n, roughness, spec_dir)
+    spec_bsdf = (brdf.eval_specular(incident, macro_n, tex_diffuse, metallic,
+                                    roughness, spec_dir)
+                 * (torch.clamp(dot(macro_n, spec_dir), 0.0, 1.0)
+                    / torch.clamp(spec_pdf, min=1e-12)))
+    spec_env = (brdf.eval_specular(incident, macro_n, tex_diffuse, metallic,
+                                   roughness, env_dir)
+                * (torch.clamp(cos_env, 0.0, 1.0) / env_pdf))
+
+    # refraction branch
+    refr_dir = brdf.refract(s.direction, micro_n, n1 / n2)
+    # diffuse branch
+    diff_dir = brdf.sample_lambert(macro_n, u[6], u[7])
+    diff_pdf = brdf.lambert_pdf(macro_n, diff_dir)
+    diff_bsdf = (brdf.eval_lambert(tex_diffuse)
+                 * (torch.clamp(dot(macro_n, diff_dir), 0.0, 1.0)
+                    / torch.clamp(diff_pdf, min=1e-12)))
+    diff_env = (brdf.eval_lambert(tex_diffuse)
+                * (torch.clamp(cos_env, 0.0, 1.0) / env_pdf))
+
+    new_dir = where(specular, spec_dir, where(refractive, refr_dir, diff_dir))
+    new_dir = normalize(new_dir)
+    bsdf_pdf = torch.where(specular, spec_pdf,
+                           torch.where(refractive, 1.0, diff_pdf))
+    one = vec.splat(1.0, like=u[0])
+    bsdf_throughput = where(specular, spec_bsdf,
+                            where(refractive, one, diff_bsdf))
+    env_throughput = where(specular, spec_env,
+                           where(refractive, zero, diff_env))
+    offset_in = hit_p - macro_n * (cfg.epsilon * 2.0)
+    new_origin = where(refractive, offset_in, offset_out)
+
+    # Beer's-law-ish absorption when exiting a medium (tracer.fs:497)
+    beer = V3(*(torch.clamp(1.0 - (1.0 - c) * s.t * dielectric, min=0.0)
+                for c in (tex_diffuse.x, tex_diffuse.y, tex_diffuse.z)))
+    bsdf_throughput = where(inside, beer, bsdf_throughput)
+
+    w_env, w_bsdf = brdf.mis_weights(env_pdf, bsdf_pdf)
+
+    # ---- traversal: ONE nearest-hit launch of the scatter rays and the
+    # env shadow rays; unwanted lanes are parked above the scene ---------
+    park = vec.splat(1.0e9, like=u[0])
+    up = V3(torch.zeros_like(u[0]), torch.ones_like(u[0]),
+            torch.zeros_like(u[0]))
+    scat_o = where(active, new_origin, park)
+    scat_d = where(active, new_dir, up)
+    scat_tmax = torch.full_like(u[0], cfg.max_t)
+
+    shadow_wanted = active & (dielectric < 0.0) & (cos_env > 0.0)
+    shad_o = where(shadow_wanted, offset_out, park)
+    shad_d = where(shadow_wanted, env_dir, up)
+    shadow_tmax = torch.where(shadow_wanted, scat_tmax, 0.0)
+
+    n = active.shape[0]
+    hits = sorted_intersect(scene, cfg, meta, vec.cat([scat_o, shad_o]),
+                            vec.cat([scat_d, shad_d]),
+                            torch.cat([active, shadow_wanted]),
+                            torch.cat([scat_tmax, shadow_tmax]))
+    nxt = PacketHit(*(a[:n] for a in hits))
+    shadow_open = hits.slot[n:] < 0
+
+    # ---- NEE env contribution (tracer.fs:499-505) ----------------------
+    nee_L = (nee_rad if nee_rad is not None
+             else env_radiance_rows(tex.env6, env_hw, env_dir,
+                                    scene.env_theta))
+    nee = (s.throughput * env_throughput * nee_L * w_env)
+    color = color + where(shadow_wanted & shadow_open, nee, zero)
+
+    throughput = where(active, s.throughput * bsdf_throughput, s.throughput)
+
+    # ---- scatter-ray env hit (tracer.fs:509-512) -----------------------
+    scat_miss = active & (nxt.slot < 0)
+    if cfg.escape_env_nearest:
+        esc_L = env_radiance_rows_nearest(tex.env6, env_hw, new_dir,
+                                          scene.env_theta)
+    else:
+        esc_L = env_radiance_rows(tex.env6, env_hw, new_dir, scene.env_theta)
+    esc = throughput * esc_L * w_bsdf
+    color = color + where(scat_miss, esc, zero)
+
+    # ---- bookkeeping ----------------------------------------------------
+    bounces_used = s.bounces_used + (active & ~refractive).to(torch.int32)
+    still_active = active & ~scat_miss & (bounces_used < cfg.bounces)
+
+    f32 = torch.float32
+    per_it = (active.to(f32).sum(), shadow_wanted.to(f32).sum(),
+              nxt.visits.to(f32).sum())
+
+    return PathState(
+        origin=where(active, new_origin, s.origin),
+        direction=where(active, new_dir, s.direction),
+        t=torch.where(active, nxt.t, s.t),
+        slot=torch.where(active, nxt.slot, s.slot),
+        bu=torch.where(active, nxt.u, s.bu),
+        bv=torch.where(active, nxt.v, s.bv),
+        throughput=throughput,
+        color=color,
+        bounces_used=bounces_used,
+        active=still_active,
+        prev_pdf=torch.where(active & ~refractive, bsdf_pdf, s.prev_pdf),
+        lidx=s.lidx, gid=s.gid,
+    ), per_it

@@ -1,0 +1,95 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each kernel source under csrc/ exposes a plain C interface and is compiled
+by `nvcc` alone into a shared library (no PyTorch headers, so a build takes
+seconds), for sm_90a (Hopper).  The library lands in fspt_tpu_torch/_build/
+under a name keyed by a hash of the source and flags, so an edited source
+rebuilds and an unchanged one is loaded as is.  `ptxas -v` output (registers,
+spills, stack frame) is kept beside it in a .log file.
+
+Nothing here runs at import: the CPU tests import every module on a machine
+without nvcc.  A missing nvcc or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs = {}
+# name -> {"path", "seconds" (0.0 when loaded from a previous build), "log"}
+build_info = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin or "
+                           "/usr/local/cuda/bin): cannot build the CUDA "
+                           "kernels")
+    return path
+
+
+def _build(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        text = f.read()
+    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"libfspt_{name}_{tag}.so")
+    log = out + ".log"
+    if os.path.exists(out):
+        with open(log) as f:
+            build_info[name] = {"path": out, "seconds": 0.0, "log": f.read()}
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    with open(log, "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    build_info[name] = {"path": out, "seconds": seconds,
+                        "log": proc.stdout + proc.stderr}
+    return out
+
+
+def load_traverse4() -> ctypes.CDLL:
+    """The traverse4 kernel library, built on first call."""
+    with _lock:
+        lib = _libs.get("traverse4")
+        if lib is not None:
+            return lib
+        lib = ctypes.CDLL(_build("traverse4"))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.fspt_traverse4.restype = i32
+        lib.fspt_traverse4.argtypes = (
+            [ptr] * 9                  # nodes, leaves, ox oy oz dx dy dz tmax
+            + [i32] * 4                # n, leaf_size, stack_depth, any_hit
+            + [ptr] * 6                # t, slot, u, v, visits, overflow
+            + [ptr])                   # stream
+        lib.fspt_cuda_error_string.restype = ctypes.c_char_p
+        lib.fspt_cuda_error_string.argtypes = [i32]
+        _libs["traverse4"] = lib
+        return lib

@@ -25,6 +25,12 @@ jax.config.update("jax_compilation_cache_dir", "/tmp/fspt_jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels of the "
+        "fspt_tpu_torch port); skips without one")
+
+
 @pytest.fixture(scope="session")
 def small_scene():
     from fspt_tpu.testing import make_test_scene

@@ -1,0 +1,182 @@
+"""The port's traversal (fspt_tpu_torch.ops.traverse4) against the JAX
+package's Pallas kernel and the brute-force oracle.
+
+On the CPU `packet_traverse4` runs its plain PyTorch version, which walks
+each ray in the CUDA kernel's order; it must find the TPU kernel's hits:
+equal slots, and t/u/v within rtol 1e-5 / atol 1e-6 (the TPU kernel tests
+the same triangles against the same best t, in another order, so hits
+differ only on exact ties, which random triangles do not produce).
+
+The JAX kernel runs in interpret mode with its burst knobs at 1 (unroll,
+drain_unroll, npop, lpop): the same kernel body and contract, traced in
+seconds rather than a minute.  tests/test_fastbvh.py holds the default
+knobs to the same hits.
+
+On a machine with a card, the CUDA kernel must match the plain version
+bit for bit (marked `cuda`; skipped here).  That machine has no JAX, so
+the JAX package is imported inside the tests that compare against it, and
+the card runs this file as
+    python -m pytest --noconftest -m cuda tests/test_torch_traverse4.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fspt_tpu_torch.core.vec import V3
+from fspt_tpu_torch.ops import packing
+from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
+                                          packet_traverse4_reference)
+from fspt_tpu_torch.scene.bvh import triangle_aabbs
+from fspt_tpu_torch.scene.fastbvh import build_bvh_fast
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+KNOBS = dict(unroll=1, drain_unroll=1, npop=1, lpop=1)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """400 random triangles, 1024 random rays (tests/test_fastbvh.py's
+    split-kernel parity setup)."""
+    rng = np.random.default_rng(42)
+    centers = rng.uniform(-1, 1, size=(400, 1, 3))
+    verts = (centers + rng.normal(size=(400, 3, 3)) * 0.05).astype(np.float32)
+    tmin, tmax = triangle_aabbs(verts)
+    bvh = build_bvh_fast(tmin, tmax, leaf_size=8)
+    gather = np.where(bvh.slot_tri < 0, 0, bvh.slot_tri)
+    v = verts[gather]
+    v[bvh.slot_tri < 0] = 0.0
+    pk = packing.pack_bvh(bvh.left, bvh.right, bvh.tri_offset,
+                          bvh.node_min, bvh.node_max, v[:, 0],
+                          v[:, 1] - v[:, 0], v[:, 2] - v[:, 0],
+                          leaf_size=8, width=8)
+    n = 1024
+    o = rng.uniform(-2, 2, size=(3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    tm = rng.uniform(0.05, 1.5, size=n).astype(np.float32)
+    return pk, o, d, tm
+
+
+def _jax(pk, o, d, tm=None, any_hit=False):
+    import jax.numpy as jnp
+    from fspt_tpu.core.vec import V3 as JV3
+    from fspt_tpu.ops.traverse4 import packet_traverse4 as jax_traverse4
+    return jax_traverse4(
+        jnp.asarray(pk.nodes), jnp.asarray(pk.leaves),
+        JV3(*map(jnp.asarray, o)), JV3(*map(jnp.asarray, d)),
+        None if tm is None else jnp.asarray(tm), leaf_size=8,
+        stack_depth=8 * (pk.depth + 2), any_hit=any_hit, interpret=True,
+        **KNOBS)
+
+
+def _port(pk, o, d, tm=None, any_hit=False, device="cpu", fn=None):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    fn = fn or packet_traverse4
+    return fn(t(pk.nodes), t(pk.leaves), V3(*map(t, o)), V3(*map(t, d)),
+              None if tm is None else t(tm), leaf_size=8,
+              stack_depth=8 * (pk.depth + 2) + 16, any_hit=any_hit)
+
+
+def _assert_hits(ours, ref):
+    np.testing.assert_array_equal(ours.slot.cpu().numpy(),
+                                  np.asarray(ref.slot))
+    for f in ("t", "u", "v"):
+        np.testing.assert_allclose(getattr(ours, f).cpu().numpy(),
+                                   np.asarray(getattr(ref, f)), **TOL)
+
+
+@pytest.mark.parametrize("clip", ["max_t", "per_ray_tmax"])
+def test_nearest_hit_matches_pallas_kernel(setup, clip):
+    pk, o, d, tm = setup
+    if clip == "max_t":
+        tm = np.full_like(tm, 1.0e5)
+    ours = _port(pk, o, d, tm)
+    ref = _jax(pk, o, d, tm)
+    assert (ours.slot >= 0).sum() > 5           # the rays do hit things
+    _assert_hits(ours, ref)
+    assert (ours.visits >= 1).all()
+
+
+def test_any_hit_occlusion_matches_pallas_kernel(setup):
+    pk, o, d, tm = setup
+    ours = _port(pk, o, d, tm, any_hit=True)
+    ref = _jax(pk, o, d, tm, any_hit=True)
+    np.testing.assert_array_equal(ours.slot.numpy() >= 0,
+                                  np.asarray(ref.slot) >= 0)
+    # any-hit ends the walk early: never more visits than nearest-hit
+    near = _port(pk, o, d, tm)
+    assert (ours.visits <= near.visits).all()
+
+
+def test_matches_brute_force_on_small_scene(small_scene):
+    import jax.numpy as jnp
+    from fspt_tpu.core.geometry import brute_force_intersect
+    a = small_scene.arrays
+    rng = np.random.default_rng(7)
+    n = 2048
+    o = rng.uniform(-1.5, 1.5, size=(n, 3)).astype(np.float32)
+    o[:, 1] = np.abs(o[:, 1]) + 0.6          # above the floor and sphere
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 1] = -np.abs(d[:, 1])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    bt, bslot = brute_force_intersect(jnp.asarray(o), jnp.asarray(d),
+                                      jnp.asarray(a.tri_v0),
+                                      jnp.asarray(a.tri_e1),
+                                      jnp.asarray(a.tri_e2))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    hit = packet_traverse4(t(a.pk_nodes), t(a.pk_leaves), V3(*t(o.T)),
+                           V3(*t(d.T)), leaf_size=small_scene.meta.leaf_size,
+                           stack_depth=small_scene.meta.pk_stack_depth + 16)
+    assert (hit.slot >= 0).float().mean() > 0.5
+    np.testing.assert_array_equal(hit.slot.numpy(), np.asarray(bslot))
+    np.testing.assert_allclose(hit.t.numpy(), np.asarray(bt), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_undersized_stack_raises(setup):
+    pk, o, d, _ = setup
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        packet_traverse4(t(pk.nodes), t(pk.leaves), V3(*map(t, o)),
+                         V3(*map(t, d)), leaf_size=8, stack_depth=4)
+
+
+def test_rejects_other_tree_widths(setup):
+    pk, o, d, _ = setup
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    with pytest.raises(ValueError, match="8-wide"):
+        packet_traverse4(t(pk.nodes), t(pk.leaves), V3(*map(t, o)),
+                         V3(*map(t, d)), leaf_size=8, tree_width=16)
+
+
+def test_plain_version_does_not_count_launches(setup):
+    pk, o, d, _ = setup
+    before = packet_traverse4.launches
+    _port(pk, o, d)
+    assert packet_traverse4.launches == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cuda_kernel_bit_exact_vs_plain(setup, cuda_device, any_hit):
+    from fspt_tpu_torch.ops.traverse4 import check_stack_overflow
+    pk, o, d, tm = setup
+    before = packet_traverse4.launches
+    ours = _port(pk, o, d, tm, any_hit=any_hit, device=cuda_device)
+    torch.cuda.synchronize()
+    check_stack_overflow(cuda_device)
+    assert packet_traverse4.launches == before + 1
+    ref = _port(pk, o, d, tm, any_hit=any_hit, device=cuda_device,
+                fn=packet_traverse4_reference)
+    for f in ours._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f

@@ -7,26 +7,47 @@ Run from the root of a checkout, with no arguments:
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: name, `nvidia-smi` name and power limit, torch/CUDA versions;
-  2. build: nvcc builds csrc/traverse4.cu into fspt_tpu_torch/_build/;
+  2. build: nvcc builds csrc/traverse4.cu and csrc/walk.cu concurrently into
+     fspt_tpu_torch/_build/; nvcc seconds and each kernel's registers and
+     spills;
   3. scene: the bench scene (82k-triangle bunny stand-in) onto the card;
-  4. kernel vs plain: the traverse4 CUDA kernel against its plain PyTorch
-     version on one sample's 262,144 primary rays and on the port's own
-     bounce-0 scatter+shadow launch — bit-equal slot/visits/t/u/v, any-hit
-     flags and per-ray tmax clipping — plus 4,096 rays against brute-force
-     Moller-Trumbore over every triangle; times of both versions;
-  5. golden: a 32x32 render on the card against tests/goldens/bunny_class.npy
+  4. kernel vs plain, traverse4 ("split"): the CUDA kernel against its plain
+     PyTorch version on one sample's 262,144 primary rays and on the port's
+     own bounce-0 scatter+shadow launch — bit-equal slot/visits/t/u/v,
+     any-hit flags and per-ray tmax clipping — plus 4,096 rays against
+     brute-force Moller-Trumbore over every triangle; times of both;
+  5. width 16: the bench scene packed 16-wide; traverse4 and walk3 on the
+     primary rays, each bit-equal to its plain version and finding the
+     8-wide tables' slots;
+  6. kernel vs plain, the group walks: walk3 ("walk") on the primary rays
+     and on the port's own sorted bounce-0 launch of the CLI's --no-compact
+     configuration (2 x 262,144 lanes), walk1 ("packet") on the primary
+     rays; nearest, any-hit and clipped runs bit-equal, lane counts
+     bit-equal on the primary rays; times of both;
+  7. golden: 32x32 renders on the card against tests/goldens/bunny_class.npy
+     under "split" and under the default "walk", and heatmap.npy
      (tests/test_goldens.py's 5% bound);
-  6. bench: the bench configuration at 512x512, 8 bounces, 8 spp per step —
-     one warm-up step, then 4 timed steps with the kernel's launch count
-     reset before and read after; rays/s, ms/sample, per-bounce occupancy;
-     the image must be finite and non-zero and is written as a PNG.
-Then one JSON line with the kernels' numbers, and last the result line.
+  8. bench: the bench configuration ("split") at 512x512, 8 bounces, 8 spp
+     per step — one warm-up step, then 4 timed steps with the kernel's
+     launch count reset before and read after; rays/s, ms/sample,
+     per-bounce occupancy; the image must be finite and non-zero;
+  9. walk bench: the CLI's --no-compact configuration ("walk", no
+     compaction, per-launch sort) at 512x512, 8 bounces, 8 spp per step —
+     one warm-up step, then 2 timed steps, walk3's launch count checked;
+ 10. packet: one 1-spp step of the same configuration under "packet",
+     walk1's launch count checked;
+ 11. heatmap: mode="bvh_heatmap" at 512x512, 1 spp; mean lane count; PNG;
+ 12. CLI: `python -m fspt_tpu_torch render` of a tiny scene file with and
+     without --no-compact in a subprocess; each must exit 0 and write a PNG.
+Then one JSON line with the kernels' numbers, the card's name and power
+limit, and last the result line.  Images go to OUT_DIR (below).
 
 It imports nothing of JAX or of the JAX package.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,10 +62,12 @@ def say(phase, **kv):
           flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn() over `reps` runs, after one warm-up."""
+def cuda_ms(fn, reps, warmup=True):
+    """Mean device time of fn() over `reps` runs, after one warm-up run
+    unless told otherwise."""
     import torch
-    fn()
+    if warmup:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -97,6 +120,135 @@ def compare(name, hit, ref, fields=("t", "slot", "u", "v", "visits")):
                for f in ("t", "u", "v"))
 
 
+def ptxas_summary(log):
+    """One line per kernel entry of a `ptxas -v` log: template arguments,
+    registers, spill stores/loads and stack frame."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            walk = re.search(r"walk_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+                             name)
+            w4 = re.search(r"walk4_kernelILi(\d+)ELb(\d)E", name)
+            if walk:
+                g, tw, a, lc, v1 = walk.groups()
+                entry = {"kernel": f"walk<group={g},width={tw},any={a},"
+                                   f"lanes={lc},v1={v1}>"}
+            elif w4:
+                entry = {"kernel": f"walk4<width={w4.group(1)},"
+                                   f"any={w4.group(2)}>"}
+            else:
+                entry = {"kernel": name}
+            out.append(entry)
+        elif entry is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", line)
+            if m:
+                entry["stack"], entry["spill_st"], entry["spill_ld"] = (
+                    m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = m.group(1)
+    return out
+
+
+def check_launch(label, fn, ref_fn, args, kw, base_hit=None, lanes=False):
+    """A captured launch, kernel against plain version: nearest, any-hit
+    and per-ray-tmax-clipped runs bit-equal (and lane counts when asked),
+    any-hit flags equal to the nearest hit's; returns (kernel ms, plain ms,
+    max |diff| of t/u/v, nearest hit)."""
+    import torch
+    nodes, leaves, ro, rd, tmax = args
+    dev = nodes.device
+    n = ro.x.shape[0]
+    run_k = lambda **x: fn(nodes, leaves, ro, rd, tmax, **{**kw, **x})
+    run_p = lambda **x: ref_fn(nodes, leaves, ro, rd, tmax, **{**kw, **x})
+    hit, ref = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = compare(f"{label} nearest", hit, ref)
+    anyk, anyp = run_k(any_hit=True), run_p(any_hit=True)
+    compare(f"{label} any-hit", anyk, anyp)
+    if not torch.equal(anyk.slot >= 0, hit.slot >= 0):
+        raise AssertionError(f"{label}: any-hit occlusion flags differ "
+                             "from the nearest hit's")
+    # per-ray tmax clipping: each hit ray's tmax set to 0.2-0.7x or
+    # 1.6-2.1x its nearest t (it must then miss, or keep its hit)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    u = torch.rand(n, device=dev, generator=gen)
+    frac = torch.where(u < 0.5, 0.2 + u, 1.1 + u)
+    base_t = tmax if tmax is not None else torch.full_like(hit.t, 1e5)
+    clip = torch.where(hit.slot >= 0, hit.t * frac, base_t)
+    ck = fn(nodes, leaves, ro, rd, clip, **kw)
+    cp = ref_fn(nodes, leaves, ro, rd, clip, **kw)
+    compare(f"{label} clipped", ck, cp)
+    kept = (hit.slot >= 0) & (frac > 1.0)
+    if not (torch.equal(ck.slot[kept], hit.slot[kept])
+            and bool((ck.slot[frac <= 1.0] < 0).all())):
+        raise AssertionError(f"{label}: tmax clipping is inconsistent")
+    extra = {}
+    if lanes:
+        lk, lp = run_k(lane_counts=True), run_p(lane_counts=True)
+        compare(f"{label} lane counts", lk, lp)
+        extra["mean_lane_count"] = f"{lk.visits.float().mean().item():.2f}"
+    if base_hit is not None and not torch.equal(hit.slot, base_hit.slot):
+        raise AssertionError(f"{label}: slots differ from the 8-wide "
+                             "tables' hits")
+    from fspt_tpu_torch.ops.traverse import check_stack_overflow
+    check_stack_overflow(dev)
+    ms = cuda_ms(run_k, 10)
+    plain_ms = cuda_ms(run_p, 1, warmup=False)   # after 3 runs above
+    say("kernel", launch=label, lanes=n, hits=int((hit.slot >= 0).sum()),
+        mean_visits=f"{hit.visits.float().mean().item():.2f}",
+        bit_equal="slot,visits,t,u,v", any_hit="equal", clip="equal",
+        **({"lane_counts": "equal"} if lanes else {}),
+        **({"slots_as_8_wide": "equal"} if base_hit is not None else {}),
+        **extra, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    return ms, plain_ms, err, hit
+
+
+def capture_launches(module, name, run):
+    """The (args, kwargs) of every call that `run()` makes to module.<name>,
+    which still runs."""
+    real = getattr(module, name)
+    calls = []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, capture)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+def timed_steps(r, steps, counter):
+    """Reset `counter.launches`, run `steps` steps, read it back; returns
+    (launches, samples, seconds, honest rays)."""
+    s0 = r.stats
+    counter.launches = 0
+    r.step(steps)
+    launches = counter.launches
+    s1 = r.stats
+    samples, seconds, rays = (s1[k] - s0[k]
+                              for k in ("samples", "seconds", "rays"))
+    return launches, samples, seconds, rays
+
+
+def check_image(r, label, size):
+    import numpy as np
+    hdr = r.hdr_image()
+    if hdr.shape != (size, size, 3) or not np.isfinite(hdr).all():
+        raise AssertionError(f"{label} image is not a finite "
+                             f"{size}x{size}x3 array")
+    if not hdr.mean() > 0:
+        raise AssertionError(f"{label} image is black")
+    return hdr
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "fspt_tpu_torch")):
         raise SystemExit("chip_smoke.py: fspt_tpu_torch/ is not beside this "
@@ -125,24 +277,35 @@ def main():
 
     # ---- 2. build -------------------------------------------------------
     from fspt_tpu_torch.ops import _build
+    from fspt_tpu_torch.ops.traverse3 import load_walk
+    from fspt_tpu_torch.ops.traverse4 import load_traverse4
     t0 = time.perf_counter()
-    _build.load_traverse4()
-    info = _build.build_info["traverse4"]
-    say("build", kernel="traverse4", seconds=f"{time.perf_counter() - t0:.2f}",
-        nvcc_seconds=f"{info['seconds']:.2f}",
-        lib=os.path.relpath(info["path"], HERE))
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    _build.build_all(["traverse4", "walk"])
+    load_traverse4()
+    load_walk()
+    wall = time.perf_counter() - t0
+    for name in ("traverse4", "walk"):
+        info = _build.build_info[name]
+        say("build", kernel=name, seconds=f"{wall:.2f}",
+            nvcc_seconds=f"{info['seconds']:.2f}",
+            lib=os.path.relpath(info["path"], HERE))
+        for entry in ptxas_summary(info["log"]):
+            print("  ptxas: " + " ".join(f"{k}={v}" for k, v in entry.items()),
+                  flush=True)
 
     from fspt_tpu_torch import RenderConfig, Renderer
     from fspt_tpu_torch.core import integrator, rng
     from fspt_tpu_torch.core.camera import generate_rays
     from fspt_tpu_torch.core.vec import V3
-    from fspt_tpu_torch.ops.traverse4 import (check_stack_overflow,
-                                              packet_traverse4,
+    from fspt_tpu_torch.ops.traverse import (check_stack_overflow,
+                                             packet_traverse,
+                                             packet_traverse_reference)
+    from fspt_tpu_torch.ops.traverse3 import (packet_traverse3,
+                                              packet_traverse3_reference)
+    from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
                                               packet_traverse4_reference)
-    from fspt_tpu_torch.testing import (make_bunny_standin_scene,
+    from fspt_tpu_torch.testing import (icosphere_obj,
+                                        make_bunny_standin_scene,
                                         make_test_scene)
 
     # ---- 3. scene -------------------------------------------------------
@@ -163,7 +326,7 @@ def main():
         stack_depth=max(cfg.stack_depth, meta.pk_stack_depth) + 16,
         seconds=f"{time.perf_counter() - t0:.2f}")
 
-    # ---- 4. kernel vs plain ---------------------------------------------
+    # ---- 4. kernel vs plain, traverse4 ----------------------------------
     n = size * size
     k0 = rng.fold_in(rng.sample_key(r.base_key, 0), 0)
     cam = r.camera
@@ -171,61 +334,25 @@ def main():
                          cam.focal_depth, cam.aperture, r.resolution,
                          rng.stream_uniforms(k0, 0, (4, n), device=dev),
                          pixel_idx=r.pixel_idx)
-    # capture the port's own launches of one sample: [primary, bounce 0, ..]
-    captured = []
-
-    def capture(*args, **kw):
-        captured.append((args, kw))
-        return packet_traverse4(*args, **kw)
-
-    integrator.packet_traverse4 = capture
+    # the port's own launches of one sample: [primary, bounce 0, ..]
     with torch.no_grad():
-        integrator.trace_paths(a, cfg, meta, o, d, k0)
-    integrator.packet_traverse4 = packet_traverse4
+        captured = capture_launches(
+            integrator, "packet_traverse4",
+            lambda: integrator.trace_paths(a, cfg, meta, o, d, k0))
     torch.cuda.synchronize()
     check_stack_overflow(dev)
 
-    kernel_rows = {}
-    max_err = 0.0
+    rows = {}
+    max_err = {"traverse4": 0.0, "walk3": 0.0, "walk1": 0.0}
     for label, (args, kw) in (("primary", captured[0]),
                               ("bounce0", captured[1])):
-        nodes, leaves, ro, rd, tmax = args
-        lanes = ro.x.shape[0]
-        run_k = lambda **x: packet_traverse4(nodes, leaves, ro, rd, tmax,
-                                             **{**kw, **x})
-        run_p = lambda **x: packet_traverse4_reference(nodes, leaves, ro, rd,
-                                                       tmax, **{**kw, **x})
-        hit, ref = run_k(), run_p()
-        torch.cuda.synchronize()
-        max_err = max(max_err, compare(f"{label} nearest", hit, ref))
-        anyk, anyp = run_k(any_hit=True), run_p(any_hit=True)
-        compare(f"{label} any-hit", anyk, anyp)
-        if not torch.equal(anyk.slot >= 0, hit.slot >= 0):
-            raise AssertionError(f"{label}: any-hit occlusion flags differ "
-                                 "from the nearest hit's")
-        # per-ray tmax clipping: each hit ray's tmax set to 0.2-0.7x or
-        # 1.6-2.1x its nearest t (it must then miss, or keep its hit)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        u = torch.rand(lanes, device=dev, generator=gen)
-        frac = torch.where(u < 0.5, 0.2 + u, 1.1 + u)
-        base_t = tmax if tmax is not None else torch.full_like(hit.t, 1e5)
-        clip = torch.where(hit.slot >= 0, hit.t * frac, base_t)
-        ck = packet_traverse4(nodes, leaves, ro, rd, clip, **kw)
-        cp = packet_traverse4_reference(nodes, leaves, ro, rd, clip, **kw)
-        compare(f"{label} clipped", ck, cp)
-        kept = (hit.slot >= 0) & (frac > 1.0)
-        if not (torch.equal(ck.slot[kept], hit.slot[kept])
-                and bool((ck.slot[frac <= 1.0] < 0).all())):
-            raise AssertionError(f"{label}: tmax clipping is inconsistent")
-        check_stack_overflow(dev)
-        ms = cuda_ms(run_k, 10)
-        plain_ms = cuda_ms(run_p, 2)
-        kernel_rows[label] = (ms, plain_ms, lanes)
-        say("kernel", launch=label, lanes=lanes,
-            hits=int((hit.slot >= 0).sum()),
-            mean_visits=f"{hit.visits.float().mean().item():.2f}",
-            bit_equal="slot,visits,t,u,v", any_hit="equal", clip="equal",
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+        ms, plain_ms, err, hit = check_launch(
+            f"traverse4 {label}", packet_traverse4,
+            packet_traverse4_reference, args, kw)
+        rows[("traverse4", label)] = (ms, plain_ms)
+        max_err["traverse4"] = max(max_err["traverse4"], err)
+        if label == "primary":
+            primary8 = hit
 
     # brute force over all triangles on a 4,096-ray subset: 2,048 primary
     # rays and 2,048 live (tmax > 0) rays of the bounce-0 launch
@@ -255,44 +382,82 @@ def main():
     say("brute", rays=4096, triangles=scene.num_triangles,
         slot_agreement=f"{agree:.5f}", ties=int((~same).sum()))
 
-    # ---- 5. golden on the card -------------------------------------------
-    golden = np.load(os.path.join(HERE, "tests", "goldens",
-                                  "bunny_class.npy"))
-    gcfg = RenderConfig(width=32, height=32, bounces=3,
-                        extra_refraction_iters=2, batch_spp=4, seed=7,
-                        intersector="split")
-    gimg = Renderer(make_test_scene(subdivisions=3), gcfg,
-                    device="cuda").step(2).hdr_image()
-    grel = float((np.abs(gimg - golden)
-                  / np.maximum(np.abs(golden), 1e-2)).max())
-    if not grel < 0.05:
-        raise AssertionError(f"golden bunny_class: max rel err {grel}")
-    say("golden", case="bunny_class", max_rel_err=f"{grel:.3g}", bound=0.05)
+    # ---- 5. width 16 -----------------------------------------------------
+    t0 = time.perf_counter()
+    scene16 = make_bunny_standin_scene(subdivisions=6, bvh_width=16)
+    a16, meta16 = scene16.to_torch(dev), scene16.meta
+    depth16 = max(cfg.stack_depth, meta16.pk_stack_depth)
+    say("width16", node_rows=a16.pk_nodes.shape[0],
+        leaf_rows=a16.pk_leaves.shape[0], pk_stack_depth=depth16,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    args16 = (a16.pk_nodes, a16.pk_leaves, o, d, None)
+    kw16 = dict(leaf_size=meta16.leaf_size, tree_width=16)
+    check_launch("traverse4 width16 primary", packet_traverse4,
+                 packet_traverse4_reference, args16,
+                 dict(kw16, stack_depth=depth16 + 32), base_hit=primary8)
+    check_launch("walk3 width16 primary", packet_traverse3,
+                 packet_traverse3_reference, args16,
+                 dict(kw16, stack_depth=depth16), base_hit=primary8)
+    del a16
 
-    # ---- 6. bench --------------------------------------------------------
+    # ---- 6. kernel vs plain, the group walks -----------------------------
+    walk_cfg = RenderConfig(width=size, height=size, bounces=8,
+                            extra_refraction_iters=0, batch_spp=8,
+                            intersector="walk")
+    with torch.no_grad():
+        walk_calls = capture_launches(
+            integrator, "packet_traverse3",
+            lambda: integrator.trace_paths(a, walk_cfg, meta, o, d, k0))
+    torch.cuda.synchronize()
+    check_stack_overflow(dev)
+    for label, (args, kw) in (("primary", walk_calls[0]),
+                              ("bounce0", walk_calls[1])):
+        ms, plain_ms, err, _ = check_launch(
+            f"walk3 {label}", packet_traverse3, packet_traverse3_reference,
+            args, kw, lanes=label == "primary")
+        rows[("walk3", label)] = (ms, plain_ms)
+        max_err["walk3"] = max(max_err["walk3"], err)
+    pkt_kw = dict(leaf_size=meta.leaf_size,
+                  stack_depth=max(cfg.stack_depth, meta.pk_stack_depth))
+    ms, plain_ms, err, _ = check_launch(
+        "walk1 primary", packet_traverse, packet_traverse_reference,
+        (a.pk_nodes, a.pk_leaves, o, d, None), pkt_kw)
+    rows[("walk1", "primary")] = (ms, plain_ms)
+    max_err["walk1"] = err
+
+    # ---- 7. goldens on the card ------------------------------------------
+    def golden(name, cfg_kw, steps):
+        ref = np.load(os.path.join(HERE, "tests", "goldens", f"{name}.npy"))
+        gcfg = RenderConfig(**{**dict(width=32, height=32, bounces=3,
+                                      extra_refraction_iters=2, batch_spp=4,
+                                      seed=7), **cfg_kw})
+        img = Renderer(make_test_scene(subdivisions=3), gcfg,
+                       device="cuda").step(steps).hdr_image()
+        rel = float((np.abs(img - ref) / np.maximum(np.abs(ref), 1e-2)).max())
+        if not rel < 0.05:
+            raise AssertionError(f"golden {name} ({gcfg.intersector}): max "
+                                 f"rel err {rel}")
+        say("golden", case=name, intersector=gcfg.intersector, mode=gcfg.mode,
+            max_rel_err=f"{rel:.3g}", bound=0.05)
+
+    golden("bunny_class", dict(intersector="split"), 2)
+    golden("bunny_class", {}, 2)
+    golden("heatmap", dict(mode="bvh_heatmap", batch_spp=1), 1)
+
+    # ---- 8. bench ("split") ---------------------------------------------
     r.step()                                      # warm-up
-    s0 = r.stats
-    packet_traverse4.launches = 0
-    r.step(4)
-    launches = packet_traverse4.launches
-    s1 = r.stats
+    launches, samples, seconds, rays = timed_steps(r, 4, packet_traverse4)
     expected = 4 * integrator.traversal_launches(cfg, n, cfg.batch_spp)
     if launches != expected:
         raise AssertionError(f"traverse4 launched {launches} times on the "
                              f"main path, expected {expected}")
-    samples, seconds, rays = (s1[k] - s0[k]
-                              for k in ("samples", "seconds", "rays"))
     say("bench", size=f"{size}x{size}", spp=samples, bounces=8,
         seconds=f"{seconds:.4f}",
         ms_per_sample=f"{seconds / samples * 1e3:.3f}",
         honest_rays=f"{rays:.0f}", rays_per_s=f"{rays / seconds:.0f}",
         kernel_launches=launches, expected_launches=expected,
         card=repr(smi))
-    hdr = r.hdr_image()
-    if hdr.shape != (size, size, 3) or not np.isfinite(hdr).all():
-        raise AssertionError("bench image is not a finite 512x512x3 array")
-    if not hdr.mean() > 0:
-        raise AssertionError("bench image is black")
+    hdr = check_image(r, "bench", size)
     png = os.path.join(OUT_DIR, "chip_smoke_bench.png")
     r.save(png)
     m = r.step_metrics()
@@ -302,16 +467,106 @@ def main():
         visits_per_lane=fmt(m["visits_per_lane"]),
         rr_lanes=f"{m['rr_lanes']:.0f}", image_mean=f"{hdr.mean():.5f}",
         png=os.path.relpath(png, HERE))
+    split_launches = launches
+    del r
 
-    ms_b, plain_b, _ = kernel_rows["bounce0"]
-    ms_p, plain_p, _ = kernel_rows["primary"]
-    print(json.dumps({"kernels": [{
-        "name": "traverse4", "route": "cuda",
-        "source": "fspt_tpu_torch/csrc/traverse4.cu",
-        "replaces": "fspt_tpu/ops/traverse4.py:60",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms_b, "plain_ms": plain_b,
-        "primary_ms": ms_p, "primary_plain_ms": plain_p}]}), flush=True)
+    # ---- 9. walk bench (the CLI's --no-compact configuration) -----------
+    rw = Renderer(scene, walk_cfg, device="cuda")
+    rw.step()                                     # warm-up
+    launches, samples, seconds, rays = timed_steps(rw, 2, packet_traverse3)
+    expected = 2 * integrator.traversal_launches(walk_cfg, n,
+                                                 walk_cfg.batch_spp)
+    if launches != expected:
+        raise AssertionError(f"walk3 launched {launches} times on the walk "
+                             f"path, expected {expected}")
+    hdr = check_image(rw, "walk bench", size)
+    png = os.path.join(OUT_DIR, "chip_smoke_walk.png")
+    rw.save(png)
+    say("walk_bench", size=f"{size}x{size}", spp=samples, bounces=8,
+        seconds=f"{seconds:.4f}",
+        ms_per_sample=f"{seconds / samples * 1e3:.3f}",
+        honest_rays=f"{rays:.0f}", rays_per_s=f"{rays / seconds:.0f}",
+        kernel_launches=launches, expected_launches=expected,
+        image_mean=f"{hdr.mean():.5f}", png=os.path.relpath(png, HERE),
+        card=repr(smi))
+    walk_launches = launches
+    del rw
+
+    # ---- 10. packet ------------------------------------------------------
+    pcfg = RenderConfig(width=size, height=size, bounces=8,
+                        extra_refraction_iters=0, batch_spp=1,
+                        intersector="packet")
+    rp = Renderer(scene, pcfg, device="cuda")
+    launches, samples, seconds, rays = timed_steps(rp, 1, packet_traverse)
+    expected = integrator.traversal_launches(pcfg, n, 1)
+    if launches != expected:
+        raise AssertionError(f"walk1 launched {launches} times on the "
+                             f"packet path, expected {expected}")
+    hdr = check_image(rp, "packet", size)
+    say("packet", size=f"{size}x{size}", spp=samples,
+        seconds=f"{seconds:.4f}", honest_rays=f"{rays:.0f}",
+        kernel_launches=launches, expected_launches=expected,
+        image_mean=f"{hdr.mean():.5f}")
+    packet_launches = launches
+    del rp
+
+    # ---- 11. heatmap -----------------------------------------------------
+    hcfg = RenderConfig(width=size, height=size, mode="bvh_heatmap")
+    rh = Renderer(scene, hcfg, device="cuda")
+    launches, samples, seconds, _ = timed_steps(rh, 1, packet_traverse3)
+    if launches != integrator.traversal_launches(hcfg, n, 1):
+        raise AssertionError(f"heatmap: walk3 launched {launches} times")
+    hdr = check_image(rh, "heatmap", size)
+    lane_mean = float(hdr[..., 0].mean() / hcfg.heatmap_scale)
+    png = os.path.join(OUT_DIR, "chip_smoke_heatmap.png")
+    rh.save(png)
+    say("heatmap", size=f"{size}x{size}", seconds=f"{seconds:.4f}",
+        mean_lane_count=f"{lane_mean:.3f}",
+        max_lane_count=f"{hdr[..., 0].max() / hcfg.heatmap_scale:.0f}",
+        png=os.path.relpath(png, HERE))
+    del rh
+
+    # ---- 12. CLI ---------------------------------------------------------
+    cli_dir = os.path.join(OUT_DIR, "cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    with open(os.path.join(cli_dir, "mesh.obj"), "w") as f:
+        f.write(icosphere_obj(2))
+    scene_path = os.path.join(cli_dir, "scene.json")
+    with open(scene_path, "w") as f:
+        json.dump({"environment": [[0.2, 0.2, 0.3], [0.9, 0.9, 0.8]],
+                   "props": [{"path": "mesh.obj",
+                              "diffuse": [0.8, 0.3, 0.2]}]}, f)
+    for flags in (["--no-compact"], []):
+        out = os.path.join(cli_dir, f"cli{'_'.join(flags) or '_compact'}.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fspt_tpu_torch", "render", scene_path,
+             "--res", "64", "--samples", "4", *flags, "-o", out],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0 or not os.path.exists(out):
+            raise AssertionError(f"CLI render {flags} failed "
+                                 f"({proc.returncode}):\n{proc.stderr}")
+        say("cli", flags=" ".join(flags) or "(default)", rc=proc.returncode,
+            seconds=f"{time.perf_counter() - t0:.2f}",
+            png=os.path.relpath(out, HERE))
+
+    # ---- the kernels and the result --------------------------------------
+    def row(name, source, replaces, launches):
+        ms, plain = rows.get((name, "bounce0"), rows[(name, "primary")])
+        pms, pplain = rows[(name, "primary")]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain,
+                "primary_ms": pms, "primary_plain_ms": pplain}
+
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [
+        row("traverse4", "fspt_tpu_torch/csrc/traverse4.cu",
+            "fspt_tpu/ops/traverse4.py:60", split_launches),
+        row("walk3", "fspt_tpu_torch/csrc/walk.cu",
+            "fspt_tpu/ops/traverse3.py:64", walk_launches),
+        row("walk1", "fspt_tpu_torch/csrc/walk.cu",
+            "fspt_tpu/ops/traverse.py:243", packet_launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,8 +2,10 @@
 
 The same progressive Monte-Carlo path tracer as fspt_tpu (which stays the
 JAX reference): the host scene compiler is a jax-free copy, the device code
-is PyTorch, and BVH traversal is a hand-written CUDA kernel
-(csrc/traverse4.cu) behind ops/traverse4.py.  Nothing here imports JAX.
+is PyTorch, and BVH traversal is hand-written CUDA: csrc/traverse4.cu behind
+ops/traverse4.py ("split") and csrc/walk.cu behind ops/traverse3.py
+("walk", the heatmap) and ops/traverse.py ("packet").  Nothing here
+imports JAX.  `python -m fspt_tpu_torch` is the command line.
 
 Public API:
     fspt_tpu_torch.load_scene_dict(d, loader) / load_scene_file(path)

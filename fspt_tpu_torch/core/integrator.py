@@ -1,26 +1,27 @@
-"""The path-tracing integrator: port of the main-path functions of
-fspt_tpu.core.integrator (the wavefront estimator of reference
-shader/tracer.fs:436-518).
+"""The path-tracing integrator: port of fspt_tpu.core.integrator (the
+wavefront estimator of reference shader/tracer.fs:436-518).
 
 The estimator is the JAX version's, function for function and expression
-for expression: the same sampling strategies, MIS, compaction, state sort
-and cross-sample wavefront batching, driven by the same counter-based RNG
-streams (core/rng.py), so on the same scene, rays and keys the two agree up
-to float32 rounding.  What changes is idiom:
+for expression: the same sampling strategies, MIS, compaction, state sort,
+cross-sample wavefront batching, area-light NEE and BVH heatmap, driven by
+the same counter-based RNG streams (core/rng.py), so on the same scene, rays
+and keys the two agree up to float32 rounding.  What changes is idiom:
 
   * `lax.scan` over bounce iterations becomes a Python loop, and the
     per-iteration stats are stacked at the end;
   * `jax.tree.map` over path states becomes explicit concatenation;
   * `lax.sort((key, arange))` becomes a stable `torch.sort` (equal, since
     the lane ids break ties in index order);
-  * stop_gradient disappears: this slice renders, it does not
+  * stop_gradient disappears: this port renders, it does not
     differentiate (gradients are ROADMAP A12);
-  * traversal goes through ops/traverse4.packet_traverse4: the CUDA kernel
-    for tensors on a card, its plain version on the CPU.
+  * traversal goes through the port's ops — "split" to ops/traverse4, "walk"
+    to ops/traverse3, "packet" to ops/traverse — each a CUDA kernel for
+    tensors on a card and its plain version on the CPU; "brute" is the
+    O(N*T) oracle of core/geometry.
 
-Off-slice configurations raise NotImplementedError naming their ROADMAP
-entry: light NEE and split shadow launches (A11), the BVH heatmap mode
-(A11, needs kernel B2) and intersectors other than "split" (B2, B3, A2).
+The TPU's VMEM table budget does not apply on the card (the tables stay in
+device memory), so unlike the JAX version "split" never falls back to the
+walk kernel's HBM mode and the heatmap always runs in lane-count mode.
 """
 
 from __future__ import annotations
@@ -38,47 +39,61 @@ from fspt_tpu_torch.core.env import (env_radiance_rows,
                                      env_radiance_rows_nearest,
                                      pack_env_rows, sample_env_bins,
                                      sample_env_bins_radiance)
+from fspt_tpu_torch.core.geometry import brute_force_intersect
 from fspt_tpu_torch.core.rng import stream_uniforms
 from fspt_tpu_torch.core.vec import V3, dot, normalize, where
-from fspt_tpu_torch.ops.traverse4 import PacketHit, packet_traverse4
+from fspt_tpu_torch.ops.traverse import PacketHit, packet_traverse
+from fspt_tpu_torch.ops.traverse3 import packet_traverse3
+from fspt_tpu_torch.ops.traverse4 import packet_traverse4
+
+INTERSECTORS = ("split", "walk", "packet", "brute")
+MODES = ("render", "bvh_heatmap")
 
 
 def check_config(cfg: RenderConfig):
-    """Raise for the configuration branches this slice does not port."""
-    if cfg.intersector != "split":
-        raise NotImplementedError(
-            f"intersector={cfg.intersector!r} is not ported: 'walk' and "
-            "'packet' wait for kernels B2/B3 and 'brute' for A2 (ROADMAP); "
-            "use intersector='split'")
-    if cfg.use_light_nee:
-        raise NotImplementedError(
-            "use_light_nee is not ported yet (ROADMAP A11)")
-    if cfg.split_shadow:
-        raise NotImplementedError(
-            "split_shadow is not ported yet (ROADMAP A11)")
-    if cfg.mode != "render":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} is not ported yet (ROADMAP A11, needs "
-            "kernel B2's lane counts)")
+    """Raise for an intersector or mode name that fspt_tpu does not define
+    (the JAX version routes an unknown intersector to "packet" and an
+    unknown mode to "render" without a word)."""
+    if cfg.intersector not in INTERSECTORS:
+        raise ValueError(f"unknown intersector {cfg.intersector!r}; one of "
+                         f"{INTERSECTORS}")
+    if cfg.mode not in MODES:
+        raise ValueError(f"unknown mode {cfg.mode!r}; one of {MODES}")
+
+
+def _contig(v: V3) -> V3:
+    return V3(*(p.contiguous() for p in v))
 
 
 def intersect(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
               tmax=None, any_hit: bool = False) -> PacketHit:
-    """Nearest-hit (or any-hit) traversal through the traverse4 kernel.
+    """Nearest-hit (or any-hit) traversal by cfg.intersector.
 
-    The stack gets 2*width entries of slack over the tree's bound, as in
-    the JAX version; the port's kernel raises instead of dropping a push
-    past it.  The TPU's VMEM table budget does not apply (the tables stay
-    in device memory), so "split" takes tables of any size."""
+    "split" gets 2*width entries of stack slack over the tree's bound, as in
+    the JAX version; "walk" and "packet" get none, as there.  The port's
+    kernels raise instead of dropping a push past the stack.  `visits` is
+    per ray under "split" and per group (128 rays for "walk", 1024 for
+    "packet") otherwise; 0 under "brute"."""
     check_config(cfg)
+    if cfg.intersector == "brute":
+        return _intersect_brute(scene, cfg, origin, direction, tmax=tmax)
     width = meta.bvh_width
-    contig = lambda v: V3(*(p.contiguous() for p in v))
-    return packet_traverse4(
-        scene.pk_nodes, scene.pk_leaves, contig(origin), contig(direction),
-        tmax.contiguous() if tmax is not None else None,
-        leaf_size=meta.leaf_size, any_hit=any_hit,
-        stack_depth=max(cfg.stack_depth, meta.pk_stack_depth) + 2 * width,
-        tree_width=width)
+    depth = max(cfg.stack_depth, meta.pk_stack_depth)
+    args = (scene.pk_nodes, scene.pk_leaves, _contig(origin),
+            _contig(direction), tmax.contiguous() if tmax is not None else None)
+    kw = dict(leaf_size=meta.leaf_size, any_hit=any_hit)
+    if cfg.intersector == "split":
+        return packet_traverse4(*args, stack_depth=depth + 2 * width,
+                                tree_width=width, **kw)
+    if cfg.intersector == "walk":
+        return packet_traverse3(*args, stack_depth=depth, tree_width=width,
+                                **kw)
+    if width != 8:
+        raise ValueError(
+            "the v1 'packet' intersector reads the 8-wide BVH layout; "
+            f"this scene was packed {width}-wide — rebuild the scene "
+            "with bvh_width=8 or use intersector='walk'")
+    return packet_traverse(*args, stack_depth=depth, **kw)
 
 
 def _morton21(x, y, z):
@@ -108,7 +123,8 @@ def sorted_intersect(scene, cfg: RenderConfig, meta, origin: V3,
     (origin Morton code << 3 | direction octant), inactive lanes last, hits
     un-permuted afterwards.  With cfg.sort_state the path state is already
     in Morton order (_sort_state), so launches go out unsorted."""
-    if not cfg.sort_rays or cfg.sort_state:
+    if (cfg.intersector not in ("packet", "walk", "split")
+            or not cfg.sort_rays or cfg.sort_state):
         return intersect(scene, cfg, meta, origin, direction, tmax=tmax,
                          any_hit=any_hit)
     n = origin.x.shape[0]
@@ -139,6 +155,40 @@ def sorted_intersect(scene, cfg: RenderConfig, meta, origin: V3,
     return PacketHit(t=out[:, 0], slot=out[:, 1].to(torch.int32),
                      u=out[:, 2], v=out[:, 3],
                      visits=out[:, 4].to(torch.int32))
+
+
+def _intersect_brute(scene, cfg, origin: V3, direction: V3,
+                     tmax=None) -> PacketHit:
+    """O(N*T) oracle path (cfg.intersector='brute', tests only)."""
+    o = vec.to_array(origin)
+    d = vec.to_array(direction)
+    t, slot = brute_force_intersect(o, d, scene.tri_v0, scene.tri_e1,
+                                    scene.tri_e2, max_t=cfg.max_t)
+    if tmax is not None:
+        # honor the per-ray clip like the traversal kernels (hits require
+        # t < tmax), so light-NEE shadow rays do not self-block on the
+        # light they sample
+        hit_ok = t < tmax
+        slot = torch.where(hit_ok, slot, -1)
+        t = torch.where(hit_ok, t, tmax)
+    gi = torch.clamp(slot, min=0).long()
+    v0 = scene.tri_v0[gi]
+    e1 = scene.tri_e1[gi]
+    e2 = scene.tri_e2[gi]
+    p = o + d * t[:, None]
+    # barycentrics of the hit (u weights corner1, v weights corner2)
+    v2 = p - v0
+    d00 = torch.sum(e1 * e1, -1)
+    d01 = torch.sum(e1 * e2, -1)
+    d11 = torch.sum(e2 * e2, -1)
+    d20 = torch.sum(v2 * e1, -1)
+    d21 = torch.sum(v2 * e2, -1)
+    den = d00 * d11 - d01 * d01
+    inv = torch.reciprocal(torch.where(torch.abs(den) > 1e-20, den,
+                                       torch.ones_like(den)))
+    u = (d11 * d20 - d01 * d21) * inv
+    v = (d00 * d21 - d01 * d20) * inv
+    return PacketHit(t=t, slot=slot, u=u, v=v, visits=torch.zeros_like(slot))
 
 
 def atlas_fetch_rgb(meta, layer, u, v, rows) -> V3:
@@ -250,13 +300,16 @@ class PathState(NamedTuple):
 
 class TraceStats(NamedTuple):
     """Per-sample counts.  rays counts active lanes only (primary + live
-    scatter/shadow segments); visits sums the rays' own node+leaf fetches
-    (ops/traverse4: per ray, not per 128-ray walk as on the TPU)."""
+    scatter/shadow segments).  visits sums the scatter launch's `visits`
+    over its lanes, whose meaning is the intersector's: the ray's own node
+    and leaf fetches under "split" (ops/traverse4), the group's shared visit
+    count under "walk" and "packet" (ops/traverse3, ops/traverse; as on the
+    TPU), 0 under "brute"."""
 
     rays: torch.Tensor        # () f32
     active: torch.Tensor      # (max_iters,) f32 live scatter lanes per it
     shadow: torch.Tensor      # (max_iters,) f32 live shadow lanes per it
-    visits: torch.Tensor      # (max_iters,) f32 summed visits of scatter rays
+    visits: torch.Tensor      # (max_iters,) f32 summed visits of scatter lanes
     rr_lanes: torch.Tensor    # () f32 active lanes dropped by compaction
 
 
@@ -603,11 +656,19 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
 
 
 def traversal_launches(cfg: RenderConfig, n_per: int, k_samples: int) -> int:
-    """Traversal launches one trace_paths_batched call makes: one primary
-    launch per sample plus one scatter+shadow launch per bounce iteration
-    (per sample in phase A, shared in phase B)."""
+    """Traversal launches that tracing k_samples samples of n_per rays makes
+    (one sample step at k_samples = cfg.batch_spp): one primary launch per
+    sample plus, per bounce iteration, one scatter+shadow launch (two with
+    cfg.split_shadow) — per sample, except that trace_paths_batched shares
+    the launches of its merged phase.  The heatmap traces primaries only."""
+    if cfg.mode == "bvh_heatmap":
+        return k_samples
+    per_it = 2 if cfg.split_shadow else 1
+    if not (cfg.wavefront_batch and cfg.compact and k_samples > 1):
+        return k_samples * (1 + per_it * cfg.max_iters)
     _, its_a, groups_b = _merged_groups(cfg, n_per, n_per * k_samples)
-    return k_samples * (1 + its_a) + sum(c for _, c in groups_b)
+    return (k_samples * (1 + per_it * its_a)
+            + per_it * sum(c for _, c in groups_b))
 
 
 def _corner_lerp(c0: V3, c1: V3, c2: V3, w0, u, v) -> V3:
@@ -641,8 +702,11 @@ def _attr_table(scene):
 def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
                        env_hw, attr, tex: TexTables):
     """One shading+scatter iteration (tracer.fs:447-518): hit attributes,
-    atlas fetches, emissive add, lobe choice, env NEE with MIS, and ONE
-    traversal launch of the scatter rays and env shadow rays together."""
+    atlas fetches, emissive add, lobe choice, env NEE (and area-light NEE
+    with cfg.use_light_nee) with MIS, and the traversal: ONE nearest-hit
+    launch of the scatter and shadow rays together, or, with
+    cfg.split_shadow, a nearest-hit launch of the scatter rays and an
+    any-hit launch of the shadow rays."""
     active = s.active & (s.slot >= 0)
     slot = torch.clamp(s.slot, min=0)
 
@@ -689,8 +753,18 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
 
     # ---- emissive (tracer.fs:467) -------------------------------------
     zero = vec.splat(0.0, like=u[0])
-    emit_add = (s.throughput * tex_emissive * tex_diffuse
-                * cfg.emissive_scale + s.throughput * emitt)
+    if cfg.use_light_nee:
+        # weight the light-sampled (constant-emittance) term against the
+        # bsdf pdf that produced this hit: standard emitter-hit MIS
+        cos_l = torch.abs(dot(bary_n, -s.direction))
+        p_light_hit = (s.t * s.t) / torch.clamp(
+            cos_l * scene.light_area, min=1e-12)
+        w_hit, _ = brdf.mis_weights(s.prev_pdf, p_light_hit)
+        emit_add = (s.throughput * tex_emissive * tex_diffuse
+                    * cfg.emissive_scale + s.throughput * emitt * w_hit)
+    else:
+        emit_add = (s.throughput * tex_emissive * tex_diffuse
+                    * cfg.emissive_scale + s.throughput * emitt)
     color = s.color + where(active, emit_add, zero)
 
     incident = -s.direction
@@ -754,8 +828,7 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
 
     w_env, w_bsdf = brdf.mis_weights(env_pdf, bsdf_pdf)
 
-    # ---- traversal: ONE nearest-hit launch of the scatter rays and the
-    # env shadow rays; unwanted lanes are parked above the scene ---------
+    # ---- traversal: unwanted lanes are parked above the scene ----------
     park = vec.splat(1.0e9, like=u[0])
     up = V3(torch.zeros_like(u[0]), torch.ones_like(u[0]),
             torch.zeros_like(u[0]))
@@ -768,13 +841,49 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     shad_d = where(shadow_wanted, env_dir, up)
     shadow_tmax = torch.where(shadow_wanted, scat_tmax, 0.0)
 
+    seg_o = [scat_o, shad_o]
+    seg_d = [scat_d, shad_d]
+    seg_t = [scat_tmax, shadow_tmax]
+    seg_a = [active, shadow_wanted]
+
+    if cfg.use_light_nee:
+        last = scene.light_cdf.shape[0] - 1
+        li = torch.clamp(torch.searchsorted(scene.light_cdf, u[8]), 0, last)
+        lv0 = vec.gather(scene.light_v0, li)
+        le1 = vec.gather(scene.light_e1, li)
+        le2 = vec.gather(scene.light_e2, li)
+        su = torch.sqrt(u[9])
+        p_l = lv0 + le1 * (1.0 - su) + le2 * (u[10] * su)
+        to_l = p_l - offset_out
+        dist2 = dot(to_l, to_l)
+        dist = torch.sqrt(dist2)
+        wi = to_l * torch.reciprocal(torch.clamp(dist, min=1e-12))
+        ln = normalize(vec.cross(le1, le2))
+        cos_li = torch.abs(dot(ln, -wi))
+        pdf_l = dist2 / torch.clamp(cos_li * scene.light_area, min=1e-12)
+        cos_s = dot(macro_n, wi)
+        light_wanted = (active & (dielectric < 0.0) & (cos_s > 0.0)
+                        & (scene.n_light_tris > 0))
+        seg_o.append(where(light_wanted, offset_out, park))
+        seg_d.append(where(light_wanted, wi, up))
+        seg_t.append(torch.where(light_wanted, dist * (1.0 - 1e-3), 0.0))
+        seg_a.append(light_wanted)
+
     n = active.shape[0]
-    hits = sorted_intersect(scene, cfg, meta, vec.cat([scat_o, shad_o]),
-                            vec.cat([scat_d, shad_d]),
-                            torch.cat([active, shadow_wanted]),
-                            torch.cat([scat_tmax, shadow_tmax]))
-    nxt = PacketHit(*(a[:n] for a in hits))
-    shadow_open = hits.slot[n:] < 0
+    if cfg.split_shadow:
+        nxt = sorted_intersect(scene, cfg, meta, seg_o[0], seg_d[0],
+                               seg_a[0], seg_t[0])
+        occ = sorted_intersect(scene, cfg, meta, vec.cat(seg_o[1:]),
+                               vec.cat(seg_d[1:]), torch.cat(seg_a[1:]),
+                               torch.cat(seg_t[1:]), any_hit=True)
+        seg_slot = lambda i: occ.slot[(i - 1) * n:i * n]
+    else:
+        hits = sorted_intersect(scene, cfg, meta, vec.cat(seg_o),
+                                vec.cat(seg_d), torch.cat(seg_a),
+                                torch.cat(seg_t))
+        nxt = PacketHit(*(a[:n] for a in hits))
+        seg_slot = lambda i: hits.slot[i * n:(i + 1) * n]
+    shadow_open = seg_slot(1) < 0
 
     # ---- NEE env contribution (tracer.fs:499-505) ----------------------
     nee_L = (nee_rad if nee_rad is not None
@@ -782,6 +891,22 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
                                     scene.env_theta))
     nee = (s.throughput * env_throughput * nee_L * w_env)
     color = color + where(shadow_wanted & shadow_open, nee, zero)
+
+    # ---- NEE area-light contribution (working version of the
+    # reference's dead lightTex path; MIS vs the sampled lobe) -----------
+    if cfg.use_light_nee:
+        spec_li = (brdf.eval_specular(incident, macro_n, tex_diffuse,
+                                      metallic, roughness, wi)
+                   * (torch.clamp(cos_s, 0.0, 1.0) / pdf_l))
+        diff_li = (brdf.eval_lambert(tex_diffuse)
+                   * (torch.clamp(cos_s, 0.0, 1.0) / pdf_l))
+        light_tp = where(specular, spec_li,
+                         where(refractive, zero, diff_li))
+        le = vec.gather(scene.emit, scene.light_slot[li].long())
+        l_open = seg_slot(2) < 0
+        w_l, _ = brdf.mis_weights(pdf_l, bsdf_pdf)
+        l_nee = s.throughput * light_tp * le * w_l
+        color = color + where(light_wanted & l_open, l_nee, zero)
 
     throughput = where(active, s.throughput * bsdf_throughput, s.throughput)
 
@@ -800,8 +925,10 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     still_active = active & ~scat_miss & (bounces_used < cfg.bounces)
 
     f32 = torch.float32
-    per_it = (active.to(f32).sum(), shadow_wanted.to(f32).sum(),
-              nxt.visits.to(f32).sum())
+    n_shadow = shadow_wanted.to(f32).sum()
+    if cfg.use_light_nee:
+        n_shadow = n_shadow + light_wanted.to(f32).sum()
+    per_it = (active.to(f32).sum(), n_shadow, nxt.visits.to(f32).sum())
 
     return PathState(
         origin=where(active, new_origin, s.origin),
@@ -817,3 +944,26 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
         prev_pdf=torch.where(active & ~refractive, bsdf_pdf, s.prev_pdf),
         lidx=s.lidx, gid=s.gid,
     ), per_it
+
+
+def trace_heatmap(scene, cfg: RenderConfig, meta, origin: V3,
+                  direction: V3) -> V3:
+    """BVH traversal-cost heatmap (reference mode=test, bvh_test.fs:224-232):
+    a node-visit count scaled by heatmap_scale, as grayscale.
+
+    With the walk intersectors ("walk", "split") the v3 kernel runs in
+    lane-count mode: each pixel reports the number of BVH nodes its own ray
+    wants (root included), the reference's per-pixel semantics.  The JAX
+    version does so only when the tables fit the TPU's VMEM; the port always
+    does (no such budget on the card).  "packet" and "brute" keep their
+    group-constant (or zero) counts, as in the JAX version."""
+    if cfg.intersector in ("walk", "split"):
+        hit = packet_traverse3(
+            scene.pk_nodes, scene.pk_leaves, _contig(origin),
+            _contig(direction), leaf_size=meta.leaf_size,
+            stack_depth=max(cfg.stack_depth, meta.pk_stack_depth),
+            tree_width=meta.bvh_width, lane_counts=True)
+    else:
+        hit = intersect(scene, cfg, meta, origin, direction)
+    v = hit.visits.to(torch.float32) * cfg.heatmap_scale
+    return V3(v, v, v)

@@ -86,6 +86,11 @@ def where(mask, a: V3, b: V3) -> V3:
               torch.where(mask, a.z, b.z))
 
 
+def gather(tab: V3, idx) -> V3:
+    """Component-wise flat gather: tab of (S,) planes, idx (N,) -> V3."""
+    return V3(tab.x[idx], tab.y[idx], tab.z[idx])
+
+
 def cat(vs) -> V3:
     """Concatenate a sequence of V3 plane-wise."""
     return V3(torch.cat([v.x for v in vs]), torch.cat([v.y for v in vs]),

@@ -53,8 +53,10 @@ def _build(name: str) -> str:
     out = os.path.join(BUILD_DIR, f"libfspt_{name}_{tag}.so")
     log = out + ".log"
     if os.path.exists(out):
-        with open(log) as f:
-            build_info[name] = {"path": out, "seconds": 0.0, "log": f.read()}
+        if build_info.get(name, {}).get("path") != out:
+            with open(log) as f:
+                build_info[name] = {"path": out, "seconds": 0.0,
+                                    "log": f.read()}
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -75,21 +77,29 @@ def _build(name: str) -> str:
     return out
 
 
-def load_traverse4() -> ctypes.CDLL:
-    """The traverse4 kernel library, built on first call."""
+def build_all(names) -> None:
+    """Build the named sources concurrently (one nvcc each), so that later
+    `load` calls find them built."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for fut in [pool.submit(_build, name) for name in names]:
+            fut.result()
+
+
+def load(name: str, argtypes) -> ctypes.CDLL:
+    """The library built from csrc/<name>.cu, built on first call.
+    argtypes: {function name: ctypes argtypes}; every function returns an
+    int (a cudaError_t), and every library also exports
+    `fspt_cuda_error_string`."""
     with _lock:
-        lib = _libs.get("traverse4")
+        lib = _libs.get(name)
         if lib is not None:
             return lib
-        lib = ctypes.CDLL(_build("traverse4"))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fspt_traverse4.restype = i32
-        lib.fspt_traverse4.argtypes = (
-            [ptr] * 9                  # nodes, leaves, ox oy oz dx dy dz tmax
-            + [i32] * 4                # n, leaf_size, stack_depth, any_hit
-            + [ptr] * 6                # t, slot, u, v, visits, overflow
-            + [ptr])                   # stream
+        lib = ctypes.CDLL(_build(name))
+        for fn, types in argtypes.items():
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = list(types)
         lib.fspt_cuda_error_string.restype = ctypes.c_char_p
-        lib.fspt_cuda_error_string.argtypes = [i32]
-        _libs["traverse4"] = lib
+        lib.fspt_cuda_error_string.argtypes = [ctypes.c_int]
+        _libs[name] = lib
         return lib

@@ -1,0 +1,170 @@
+"""Packet BVH traversal, v1: the port of fspt_tpu.ops.traverse.packet_traverse,
+and what the port's three traversal ops share (PacketHit, the error flag).
+
+Contract (that of the JAX kernel): for N rays (origin, direction, tmax) over
+the 8-wide packed tables of ops/packing.py, return `PacketHit(t, slot, u, v,
+visits)` — the nearest hit (t = tmax and slot = -1 on a miss), or, with
+`any_hit`, some hit.  slot is `leaf * leaf_size + j`; (u, v) are the hit's
+barycentrics.
+
+How it walks.  Rays go in packets of 1024 consecutive rays (the last one
+padded with parked rays: origin 1e9, direction +y, tmax 0).  All rays of a
+packet walk ONE shared node sequence with one shared stack: a visit
+slab-tests the node's 8 children for every ray, and pushes a child if any
+ray of the packet wants it, near to far by the node's sort axis and the
+packet's majority direction sign.  `visits` is the packet's count of node
+and leaf visits, the same for all its rays.  Any-hit ends the walk after a
+leaf visit once every ray has a hit (or tmax <= 0).
+
+This is `ops/traverse3.py`'s group walk at group size 1024 with v1's any-hit
+rule: the plain version and the CUDA kernel are shared with it (csrc/walk.cu
+exports this size as `fspt_walk1`).  Deviations from the JAX kernel:
+  * no VMEM table budget (`check_vmem_budget`): that is a limit of the
+    TPU's vector memory; the CUDA kernel reads the tables from device
+    memory, so the port takes tables of any size;
+  * the stack is exact up to `stack_depth` live entries and a walk past it
+    raises (the JAX kernel clamps the write into its last slot);
+  * the majority sign sums a packet's directions in one fixed order
+    (pairwise halving), where XLA's order is its own: a packet whose sum
+    lies within rounding of 0 may visit its nodes in another order (same
+    hits up to coplanar ties, other `visits`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from fspt_tpu_torch.core.vec import V3
+
+MAX_T = 1.0e5                                   # reference tracer.fs:10
+SENTINEL = int(np.iinfo(np.int32).min)          # stack-empty marker
+ROW = 128                                       # floats per packed table row
+PACKET = 1024                                   # rays per v1 packet
+
+
+class PacketHit(NamedTuple):
+    t: torch.Tensor        # (N,) f32 hit distance (tmax on miss)
+    slot: torch.Tensor     # (N,) i32 padded triangle slot (-1 on miss)
+    u: torch.Tensor        # (N,) f32 barycentric weight of corner 1
+    v: torch.Tensor        # (N,) f32 barycentric weight of corner 2
+    visits: torch.Tensor   # (N,) i32 visit count (per ray or per group,
+    #                        by op: see each module)
+
+
+def safe_inv(d):
+    tiny = torch.where(d < 0, torch.full_like(d, -1e-20),
+                       torch.full_like(d, 1e-20))
+    return 1.0 / torch.where(torch.abs(d) < 1e-20, tiny, d)
+
+
+def check_tables(name, nodes, leaves, leaf_size, stack_depth):
+    if leaf_size * 9 > ROW:
+        raise ValueError(f"leaf_size {leaf_size} needs {leaf_size * 9} "
+                         "lanes of a 128-lane row")
+    for what, t in (("nodes", nodes), ("leaves", leaves)):
+        if t.dim() != 2 or t.shape[1] != ROW:
+            raise ValueError(f"{name}: {what} must be (rows, 128), got "
+                             f"{tuple(t.shape)}")
+    if stack_depth < 1:
+        raise ValueError(f"{name}: stack_depth must be >= 1, got "
+                         f"{stack_depth}")
+
+
+def ray_planes(name, nodes, leaves, origin: V3, direction: V3, tmax):
+    """(tmax, the 7 ray planes, device): tmax defaults to MAX_T, and every
+    tensor must lie on the tables' device."""
+    n = origin.x.shape[0]
+    if tmax is None:
+        tmax = torch.full((n,), MAX_T, dtype=torch.float32,
+                          device=origin.x.device)
+    planes = (*origin, *direction, tmax)
+    devices = {x.device for x in (nodes, leaves, *planes)}
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs span devices {devices}")
+    dev = nodes.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    return tmax, planes, dev
+
+
+def check_kernel_inputs(name, nodes, leaves, planes, n):
+    for x in (nodes, leaves, *planes):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} takes contiguous float32 tensors")
+    if any(x.shape != (n,) for x in planes):
+        raise ValueError(f"{name}: ray planes and tmax must all be (N,)")
+
+
+# ---- the kernels' per-device error flag -----------------------------------
+
+_error_flags = {}
+
+
+def error_flag(device) -> torch.Tensor:
+    """The per-device int32 pair the traversal kernels bump: [0] counts
+    walks that overflowed their stack, [1] walks stopped by the step
+    backstop."""
+    key = torch.device(device).index
+    if key is None:
+        key = torch.cuda.current_device()
+    flag = _error_flags.get(key)
+    if flag is None:
+        flag = torch.zeros(2, dtype=torch.int32, device=f"cuda:{key}")
+        _error_flags[key] = flag
+    return flag
+
+
+def check_stack_overflow(device):
+    """Raise if a traversal kernel launched on `device` overflowed a stack
+    or ran away since the last check.  Reads a device flag: call after a
+    synchronise."""
+    if torch.device(device).type != "cuda":
+        return
+    flag = error_flag(device)
+    overflow, runaway = (int(x) for x in flag.tolist())
+    if overflow or runaway:
+        flag.zero_()
+        raise RuntimeError(
+            f"traversal: {overflow} walk(s) overflowed the traversal stack "
+            f"(raise cfg.stack_depth) and {runaway} ran past the step "
+            "backstop")
+
+
+def packet_traverse_reference(nodes, leaves, origin: V3, direction: V3,
+                              tmax=None, *, leaf_size: int = 8,
+                              any_hit: bool = False,
+                              stack_depth: int = 64) -> PacketHit:
+    """Plain PyTorch version of the v1 kernel (ops/traverse3's group walk at
+    1024 rays a group, v1 rules)."""
+    from fspt_tpu_torch.ops.traverse3 import group_walk_reference
+    return group_walk_reference(
+        nodes, leaves, origin, direction, tmax, group=PACKET, tree_width=8,
+        leaf_size=leaf_size, any_hit=any_hit, stack_depth=stack_depth,
+        v1=True)
+
+
+def packet_traverse(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
+                    leaf_size: int = 8, any_hit: bool = False,
+                    stack_depth: int = 64) -> PacketHit:
+    """v1 packet traversal over 8-wide tables; see the module docstring.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel
+    (`fspt_walk1` of csrc/walk.cu) on the current stream or raise; every
+    launch adds one to `packet_traverse.launches`."""
+    from fspt_tpu_torch.ops.traverse3 import launch_walk
+    tmax, planes, dev = ray_planes("packet_traverse", nodes, leaves, origin,
+                                   direction, tmax)
+    if dev.type == "cpu":
+        return packet_traverse_reference(
+            nodes, leaves, origin, direction, tmax, leaf_size=leaf_size,
+            any_hit=any_hit, stack_depth=stack_depth)
+    return launch_walk("packet_traverse", "fspt_walk1", packet_traverse,
+                       nodes, leaves, planes, leaf_size=leaf_size,
+                       any_hit=any_hit, stack_depth=stack_depth,
+                       tree_width=8, lane_counts=False)
+
+
+packet_traverse.launches = 0

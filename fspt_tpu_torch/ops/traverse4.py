@@ -2,7 +2,7 @@
 fspt_tpu.ops.traverse4.packet_traverse4.
 
 Contract (that of the JAX kernel): for N rays (origin, direction, tmax) over
-the 8-wide tables of ops/packing.py, return `PacketHit(t, slot, u, v,
+the 8- or 16-wide tables of ops/packing.py, return `PacketHit(t, slot, u, v,
 visits)` — the nearest hit (t = tmax and slot = -1 on a miss), or, with
 `any_hit`, some hit (the walk ends at the first one).  slot is
 `leaf * leaf_size + j`; (u, v) are the hit's barycentrics.
@@ -10,10 +10,10 @@ visits)` — the nearest hit (t = tmax and slot = -1 on a miss), or, with
 How it walks.  The TPU kernel advanced 8x128-ray lockstep walks with a
 phase split between node bursts and leaf-drain bursts; on Hopper each ray
 walks alone, one thread per ray with its own stack, as the GLSL original
-did (tracer.fs:366-404).  A pop visits one entry: a node slab-tests its 8
+did (tracer.fs:366-404).  A pop visits one entry: a node slab-tests its
 children and pushes the wanted ones (nodes and leaves alike) far to near,
 so the nearest is popped next; a leaf runs Möller–Trumbore over its
-triangles.  Children go near to far by the node's sort axis (lane 56) and
+triangles.  Children go near to far by the node's sort axis (lane 7*width) and
 *the ray's own* direction sign on it (the TPU used the walk's majority
 sign).  A child is wanted iff (tmax >= tmin) & (tmax > 0) & (tmin < bt) and
 its link is not the empty-slot marker (<= -1e8).  safe_inv and the MT
@@ -22,14 +22,15 @@ epsilons and comparisons are those of the TPU kernel, including the strict
 
 `visits` differs in meaning: it counts the ray's OWN node and leaf fetches,
 where the TPU kernel reported the shared fetch count of its 128-ray walk.
-TraceStats.visits and Renderer.step_metrics' visits_per_lane therefore
-measure per-ray work in the port.
+Under intersector="split", TraceStats.visits and Renderer.step_metrics'
+visits_per_lane therefore measure per-ray work in the port (under "walk"
+and "packet" they are per group, as on the TPU: ops/traverse3).
 
 The stack holds max(cfg.stack_depth, meta.pk_stack_depth) + 2*width
 entries (core/integrator.intersect).  A push past it is never dropped
 silently (the TPU kernel's one-hot write would lose it): the plain version
-raises, and the kernel counts it in a per-device flag that
-`check_stack_overflow` raises on (Renderer.step calls it after its
+raises, and the kernel counts it in the per-device flag of ops/traverse.py
+that `check_stack_overflow` raises on (Renderer.step calls it after its
 synchronise).
 
 The table-size budget of the TPU path (`check_vmem_budget`, 12 MiB of
@@ -46,46 +47,25 @@ float32 arithmetic operation for operation, so the two agree bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
 from fspt_tpu_torch.core.vec import V3
-from fspt_tpu_torch.ops._build import load_traverse4
+from fspt_tpu_torch.ops import _build
+from fspt_tpu_torch.ops.traverse import (MAX_T, PacketHit,  # noqa: F401
+                                         check_kernel_inputs,
+                                         check_stack_overflow, check_tables,
+                                         error_flag, ray_planes, safe_inv)
 
-MAX_T = 1.0e5          # reference tracer.fs:10
-ROW = 128             # floats per packed table row (ops/packing.py)
-WIDTH = 8              # the only tree width the port's kernel takes
+WIDTHS = (8, 16)       # tree widths of ops/packing.py the kernel takes
 STACK_CAP = 256        # compile-time stack capacity of the CUDA kernel
 
 
-class PacketHit(NamedTuple):
-    t: torch.Tensor        # (N,) f32 hit distance (tmax on miss)
-    slot: torch.Tensor     # (N,) i32 padded triangle slot (-1 on miss)
-    u: torch.Tensor        # (N,) f32 barycentric weight of corner 1
-    v: torch.Tensor        # (N,) f32 barycentric weight of corner 2
-    visits: torch.Tensor   # (N,) i32 node + leaf fetches of this ray
-
-
 def _check_args(nodes, leaves, leaf_size, stack_depth, tree_width):
-    if tree_width != WIDTH:
-        raise ValueError(f"traverse4 takes 8-wide tables only, got "
+    if tree_width not in WIDTHS:
+        raise ValueError(f"traverse4 takes 8- or 16-wide tables, got "
                          f"tree_width={tree_width}")
-    if leaf_size * 9 > ROW:
-        raise ValueError(f"leaf_size {leaf_size} needs {leaf_size * 9} "
-                         "lanes of a 128-lane row")
-    for name, t in (("nodes", nodes), ("leaves", leaves)):
-        if t.dim() != 2 or t.shape[1] != ROW:
-            raise ValueError(f"{name} must be (rows, 128), got "
-                             f"{tuple(t.shape)}")
-    if stack_depth < 1:
-        raise ValueError(f"stack_depth must be >= 1, got {stack_depth}")
-
-
-def _safe_inv(d):
-    tiny = torch.where(d < 0, torch.full_like(d, -1e-20),
-                       torch.full_like(d, 1e-20))
-    return 1.0 / torch.where(torch.abs(d) < 1e-20, tiny, d)
+    check_tables("traverse4", nodes, leaves, leaf_size, stack_depth)
 
 
 def packet_traverse4_reference(nodes, leaves, origin: V3, direction: V3,
@@ -101,7 +81,7 @@ def packet_traverse4_reference(nodes, leaves, origin: V3, direction: V3,
     dx, dy, dz = direction
     if tmax is None:
         tmax = torch.full((n,), MAX_T, dtype=torch.float32, device=dev)
-    ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    ix, iy, iz = safe_inv(dx), safe_inv(dy), safe_inv(dz)
     bt = tmax.clone()
     bs = torch.full((n,), -1, dtype=torch.int32, device=dev)
     bu = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -109,7 +89,8 @@ def packet_traverse4_reference(nodes, leaves, origin: V3, direction: V3,
     vis = torch.zeros(n, dtype=torch.int32, device=dev)
     stack = torch.zeros((n, stack_depth), dtype=torch.int32, device=dev)
     ptr = torch.ones(n, dtype=torch.int64, device=dev)   # root pushed
-    cols = torch.arange(WIDTH, device=dev)
+    tw = tree_width
+    cols = torch.arange(tw, device=dev)
 
     live = torch.arange(n, device=dev)
     while live.numel():
@@ -125,27 +106,28 @@ def packet_traverse4_reference(nodes, leaves, origin: V3, direction: V3,
             row = nodes[link[is_node].long()]
             oxr, oyr, ozr = ox[r, None], oy[r, None], oz[r, None]
             ixr, iyr, izr = ix[r, None], iy[r, None], iz[r, None]
-            t1x = (row[:, 0:8] - oxr) * ixr
-            t2x = (row[:, 24:32] - oxr) * ixr
-            t1y = (row[:, 8:16] - oyr) * iyr
-            t2y = (row[:, 32:40] - oyr) * iyr
-            t1z = (row[:, 16:24] - ozr) * izr
-            t2z = (row[:, 40:48] - ozr) * izr
+            lane = lambda k: row[:, k * tw:(k + 1) * tw]
+            t1x = (lane(0) - oxr) * ixr
+            t2x = (lane(3) - oxr) * ixr
+            t1y = (lane(1) - oyr) * iyr
+            t2y = (lane(4) - oyr) * iyr
+            t1z = (lane(2) - ozr) * izr
+            t2z = (lane(5) - ozr) * izr
             tmin = torch.fmax(torch.fmax(torch.fmin(t1x, t2x),
                                          torch.fmin(t1y, t2y)),
                               torch.fmin(t1z, t2z))
             tmx = torch.fmin(torch.fmin(torch.fmax(t1x, t2x),
                                         torch.fmax(t1y, t2y)),
                              torch.fmax(t1z, t2z))
-            links = row[:, 48:56]
+            links = row[:, 6 * tw:7 * tw]
             want = ((tmx >= tmin) & (tmx > 0.0) & (tmin < bt[r, None])
                     & (links > -1.0e8))
-            axis = row[:, 56]
+            axis = row[:, 7 * tw]
             fwd = torch.where(axis == 0.0, dx[r] >= 0.0,
                               torch.where(axis == 1.0, dy[r] >= 0.0,
                                           dz[r] >= 0.0))
-            # push order: children 7..0 when fwd (child 0 ends on top)
-            order = torch.where(fwd[:, None], WIDTH - 1 - cols, cols)
+            # push order: children tw-1..0 when fwd (child 0 ends on top)
+            order = torch.where(fwd[:, None], tw - 1 - cols, cols)
             want = torch.gather(want, 1, order)
             links = torch.gather(links, 1, order).to(torch.int32)
             pos = ptr[r, None] + torch.cumsum(want, 1) - 1
@@ -201,36 +183,23 @@ def packet_traverse4_reference(nodes, leaves, origin: V3, direction: V3,
 
 # ---- the CUDA kernel ------------------------------------------------------
 
-_overflow_flags = {}
+_F, _I = ctypes.c_void_p, ctypes.c_int
+TRAVERSE4_ARGTYPES = (
+    [_F] * 9                   # nodes, leaves, ox oy oz dx dy dz tmax
+    + [_I] * 5                 # n, leaf_size, stack_depth, any_hit,
+    #                            tree_width
+    + [_F] * 6                 # t, slot, u, v, visits, error flag
+    + [_F])                    # stream
 
 
-def _overflow_flag(device) -> torch.Tensor:
-    """The per-device int32 counter the kernel bumps on a stack overflow."""
-    key = torch.device(device).index
-    if key is None:
-        key = torch.cuda.current_device()
-    flag = _overflow_flags.get(key)
-    if flag is None:
-        flag = torch.zeros(1, dtype=torch.int32, device=f"cuda:{key}")
-        _overflow_flags[key] = flag
-    return flag
+def load_traverse4() -> ctypes.CDLL:
+    """The traverse4 kernel library (csrc/traverse4.cu), built on first
+    call."""
+    return _build.load("traverse4", {"fspt_traverse4": TRAVERSE4_ARGTYPES})
 
 
-def check_stack_overflow(device):
-    """Raise if a kernel launch on `device` overflowed a ray's stack since
-    the last check.  Reads a device flag: call after a synchronise."""
-    if torch.device(device).type != "cuda":
-        return
-    flag = _overflow_flag(device)
-    count = int(flag.item())
-    if count:
-        flag.zero_()
-        raise RuntimeError(
-            f"traverse4: {count} ray(s) overflowed the traversal stack; "
-            "raise cfg.stack_depth")
-
-
-def _launch(nodes, leaves, planes, n, leaf_size, any_hit, stack_depth):
+def _launch(nodes, leaves, planes, n, leaf_size, any_hit, stack_depth,
+            tree_width):
     lib = load_traverse4()
     dev = nodes.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -240,12 +209,12 @@ def _launch(nodes, leaves, planes, n, leaf_size, any_hit, stack_depth):
     visits = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return PacketHit(t=t, slot=slot, u=u, v=v, visits=visits)
-    flag = _overflow_flag(dev)
+    flag = error_flag(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [x.data_ptr() for x in (nodes, leaves, *planes)]
     with torch.cuda.device(dev):
         err = lib.fspt_traverse4(
-            *ptrs, n, leaf_size, stack_depth, int(any_hit),
+            *ptrs, n, leaf_size, stack_depth, int(any_hit), tree_width,
             t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
             visits.data_ptr(), flag.data_ptr(), ctypes.c_void_p(stream))
     if err != 0:
@@ -265,30 +234,19 @@ def packet_traverse4(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
     the current stream (asynchronously) or raise; every launch adds one to
     `packet_traverse4.launches`."""
     n = origin.x.shape[0]
-    if tmax is None:
-        tmax = torch.full((n,), MAX_T, dtype=torch.float32,
-                          device=origin.x.device)
-    planes = (*origin, *direction, tmax)
-    devices = {x.device for x in (nodes, leaves, *planes)}
-    if len(devices) != 1:
-        raise ValueError(f"traverse4 inputs span devices {devices}")
-    dev = nodes.device
+    tmax, planes, dev = ray_planes("traverse4", nodes, leaves, origin,
+                                   direction, tmax)
     if dev.type == "cpu":
         return packet_traverse4_reference(
             nodes, leaves, origin, direction, tmax, leaf_size=leaf_size,
             any_hit=any_hit, stack_depth=stack_depth, tree_width=tree_width)
-    if dev.type != "cuda":
-        raise ValueError(f"traverse4 runs on cpu or cuda, not {dev}")
     _check_args(nodes, leaves, leaf_size, stack_depth, tree_width)
     if stack_depth > STACK_CAP:
         raise ValueError(f"stack_depth {stack_depth} exceeds the kernel's "
                          f"capacity {STACK_CAP}")
-    for x in (nodes, leaves, *planes):
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("traverse4 takes contiguous float32 tensors")
-    if any(x.shape != (n,) for x in planes):
-        raise ValueError("ray planes and tmax must all be (N,)")
-    return _launch(nodes, leaves, planes, n, leaf_size, any_hit, stack_depth)
+    check_kernel_inputs("traverse4", nodes, leaves, planes, n)
+    return _launch(nodes, leaves, planes, n, leaf_size, any_hit, stack_depth,
+                   tree_width)
 
 
 packet_traverse4.launches = 0

@@ -8,7 +8,7 @@ the host when an image is read.
 
 `Renderer` takes its device explicitly: "cuda" by default, which raises
 when no card is present; "cpu" runs the same path with the traversal
-kernel's plain PyTorch version (the CPU tests do so).
+kernels' plain PyTorch versions (the CPU tests do so).
 """
 
 from __future__ import annotations
@@ -22,10 +22,11 @@ import torch
 from fspt_tpu_torch.config import CameraConfig, PostConfig, RenderConfig
 from fspt_tpu_torch.core import rng, vec
 from fspt_tpu_torch.core.camera import generate_rays
-from fspt_tpu_torch.core.integrator import (check_config, trace_paths,
-                                            trace_paths_batched)
+from fspt_tpu_torch.core.integrator import (check_config, trace_heatmap,
+                                            trace_paths, trace_paths_batched)
 from fspt_tpu_torch.core.tonemap import postprocess
-from fspt_tpu_torch.ops.traverse4 import check_stack_overflow
+from fspt_tpu_torch.core.traversal import intersect_scene
+from fspt_tpu_torch.ops.traverse import check_stack_overflow
 from fspt_tpu_torch.runtime.layout import tile_order, untile
 
 
@@ -72,7 +73,8 @@ def sample_step(scene, cfg: RenderConfig, meta, cam: CameraState, accum,
             cam.position, cam.direction, cam.fov_scale, cam.focal_depth,
             cam.aperture, resolution, cam_u, pixel_idx=pixel_idx)
 
-    if cfg.wavefront_batch and cfg.compact and cfg.batch_spp > 1:
+    if (cfg.wavefront_batch and cfg.compact and cfg.batch_spp > 1
+            and cfg.mode != "bvh_heatmap"):
         # all batch_spp samples as one wavefront; tails share launches
         per = [rays_for(rng.fold_in(key, i)) for i in range(cfg.batch_spp)]
         origin = vec.cat([o for o, _ in per])
@@ -86,9 +88,13 @@ def sample_step(scene, cfg: RenderConfig, meta, cam: CameraState, accum,
     for spp_i in range(cfg.batch_spp):
         k = rng.fold_in(key, spp_i)
         origin, direction = rays_for(k)
-        radiance, stats = trace_paths(scene, cfg, meta, origin, direction,
-                                      k, return_stats=True)
-        rays = rays + stats.rays
+        if cfg.mode == "bvh_heatmap":
+            radiance = trace_heatmap(scene, cfg, meta, origin, direction)
+            rays = rays + float(n)
+        else:
+            radiance, stats = trace_paths(scene, cfg, meta, origin,
+                                          direction, k, return_stats=True)
+            rays = rays + stats.rays
         accum = accum + torch.stack([radiance.x, radiance.y, radiance.z])
     return accum, count + cfg.batch_spp, rays
 
@@ -101,7 +107,7 @@ class Renderer:
                  post: Optional[PostConfig] = None, device="cuda"):
         self.device = _device(device)
         self.scene = scene
-        self.cfg = config or RenderConfig(intersector="split")
+        self.cfg = config or RenderConfig()
         check_config(self.cfg)
         self.camera = CameraState.from_config(camera or scene.camera,
                                               self.device)
@@ -176,6 +182,60 @@ class Renderer:
         write_png(path, self.image())
         return self
 
+    # ---- interactive preview (reference main.js:841 resScale=0.25) -----
+    def preview(self, scale: float = 0.25, samples: int = 1) -> np.ndarray:
+        """Quick low-resolution render at the current camera (the
+        reference's quarter-res while-moving mode), leaving the progressive
+        accumulation alone.  The sub-renderer is cached per (width,
+        height)."""
+        import dataclasses
+        w = max(int(self.cfg.width * scale) // 8 * 8, 16)
+        h = max(int(self.cfg.height * scale) // 8 * 8, 16)
+        if not hasattr(self, "_preview_cache"):
+            self._preview_cache = {}
+        r = self._preview_cache.get((w, h))
+        if r is None:
+            cfg = dataclasses.replace(self.cfg, width=w, height=h,
+                                      batch_spp=1)
+            r = Renderer(self.scene, cfg, post=self.post, device=self.device)
+            self._preview_cache[(w, h)] = r
+        r.reset()
+        r.camera = self.camera
+        r.post = self.post
+        r.step(samples)
+        return r.image()
+
+    # ---- autofocus (reference main.js:447-546 shootAutoFocusRay) -------
+    @torch.no_grad()
+    def autofocus(self, px: Optional[int] = None, py: Optional[int] = None):
+        """Set the focal depth to the hit distance under the given pixel
+        (the view centre by default), by the per-ray binary-BVH walk of
+        core/traversal (the reference repeats the walk on the CPU)."""
+        if px is None:
+            origin = self.camera.position[None, :]
+            direction = self.camera.direction[None, :]
+        else:
+            n = self.cfg.width * self.cfg.height
+            cam_u = torch.zeros((4, n), dtype=torch.float32,
+                                device=self.device)
+            f32 = lambda x: torch.tensor(x, dtype=torch.float32,
+                                         device=self.device)
+            o, d = generate_rays(self.camera.position, self.camera.direction,
+                                 self.camera.fov_scale, f32(1e6), f32(0.0),
+                                 self.resolution, cam_u)
+            idx = py * self.cfg.width + px
+            origin = vec.to_array(o)[idx:idx + 1]
+            direction = vec.to_array(d)[idx:idx + 1]
+        hit = intersect_scene(self.arrays, origin, direction,
+                              leaf_size=self.scene.leaf_size,
+                              stack_depth=self.cfg.stack_depth)
+        t = float(hit.t[0])
+        if t < self.cfg.max_t:
+            self.camera = self.camera._replace(
+                focal_depth=torch.tensor(t, dtype=torch.float32,
+                                         device=self.device))
+        return t
+
     # ---- checkpoint / resume -------------------------------------------
     def save_checkpoint(self, path: str):
         np.savez(path, accum=self.accum.cpu().numpy(),
@@ -199,9 +259,14 @@ class Renderer:
         s = dict(self._stats)
         n = self.cfg.width * self.cfg.height
         # upper bound: every launch's full lane count (primary + batched
-        # scatter + env shadow)
-        s["lane_rays_upper_bound"] = (
-            s["samples"] * n * (1 + 2 * self.cfg.max_iters))
+        # scatter + env shadow, + light shadow when light NEE is on);
+        # heatmap mode traces only the primary launch
+        if self.cfg.mode == "bvh_heatmap":
+            s["lane_rays_upper_bound"] = s["samples"] * n
+        else:
+            segs = 3 if self.cfg.use_light_nee else 2
+            s["lane_rays_upper_bound"] = (
+                s["samples"] * n * (1 + segs * self.cfg.max_iters))
         if s["seconds"] > 0:
             # honest throughput: active-lane rays actually traced per second
             s["rays_per_s"] = s["rays"] / s["seconds"]
@@ -212,7 +277,8 @@ class Renderer:
     def step_metrics(self, sample_idx: int = 0):
         """Per-bounce metrics for one unbatched sample: occupancy (live
         scatter/shadow lane fraction) and mean traversal visits per lane
-        (the ray's own node+leaf fetches, ops/traverse4)."""
+        (TraceStats.visits over the lanes: per ray under "split", the
+        group's shared count under "walk" and "packet")."""
         n = self.cfg.width * self.cfg.height
         k = rng.fold_in(rng.sample_key(self.base_key, sample_idx), 0)
         cam_u = rng.stream_uniforms(k, 0, (4, n), device=self.device)

@@ -150,16 +150,22 @@ def test_traversal_launch_count(scene, monkeypatch):
     assert len(calls) == tint.traversal_launches(cfg, n, K)
 
 
-@pytest.mark.parametrize("kw", [dict(intersector="walk"),
-                                dict(intersector="split", use_light_nee=True),
-                                dict(intersector="split", split_shadow=True),
-                                dict(intersector="split",
-                                     mode="bvh_heatmap")])
+@pytest.mark.parametrize("kw", [dict(intersector="bvh8"),
+                                dict(mode="nee"),
+                                dict(bounces=60, extra_refraction_iters=4),
+                                dict(intersector="packet", bvh_width=16)])
 def test_off_slice_configs_raise(scene, kw):
+    """Configurations the port refuses: an intersector or mode fspt_tpu
+    does not define, an iteration count that collides with the compaction
+    RNG streams, and the 8-wide v1 packet kernel on a 16-wide scene (the
+    JAX version's message).  Every configuration fspt_tpu defines is
+    ported (tests/test_torch_paths.py)."""
     s, arrays = scene
+    kw = dict(kw)
+    meta = dataclasses.replace(s.meta, bvh_width=kw.pop("bvh_width", 8))
     u = trng.stream_uniforms(trng.key(0), 0, (4, 64))
     o, d = trays(torch.tensor(s.camera.position),
                  torch.tensor(s.camera.direction), 0.5, 1e6, 0.0, (8, 8), u)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="intersector|mode|max_iters|wide"):
         tint.trace_paths(arrays, RenderConfig(width=8, height=8, **kw),
-                         s.meta, o, d, trng.key(0))
+                         meta, o, d, trng.key(0))

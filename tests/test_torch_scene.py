@@ -6,7 +6,8 @@ fspt_tpu's host modules cannot be imported without JAX
 core.vec), so the port carries copies.  These tests hold the copies to the
 originals: sources equal up to the import rewrite, byte-identical
 SceneArrays and an equal SceneMeta, and a lossless carry onto torch.  A
-subprocess with JAX blocked imports the port and renders one step.
+subprocess with JAX blocked imports the port and renders one step under
+"split", one under the default config ("walk") and one heatmap step.
 """
 
 import dataclasses
@@ -33,7 +34,7 @@ COPIED = ["config.py", "scene/transforms.py", "scene/obj.py", "scene/mtl.py",
           "scene/atlas.py", "scene/envmap.py", "scene/bvh.py",
           "scene/fastbvh.py", "native/__init__.py", "native/bvh_builder.cpp",
           "ops/packing.py", "runtime/layout.py", "io/image.py", "testing.py",
-          "scene/schema.py"]
+          "scene/schema.py", "tools/diff.py"]
 
 
 def _read(pkg, rel):
@@ -132,12 +133,16 @@ def test_port_renders_with_jax_blocked():
         "torch.set_num_threads(1)\n"
         "import fspt_tpu_torch as ft\n"
         "from fspt_tpu_torch.testing import make_test_scene\n"
-        "cfg = ft.RenderConfig(width=32, height=32, bounces=2,\n"
-        "    extra_refraction_iters=0, intersector='split')\n"
-        "r = ft.Renderer(make_test_scene(subdivisions=1), cfg, device='cpu')\n"
-        "img = r.step().hdr_image()\n"
-        "assert img.shape == (32, 32, 3) and np.isfinite(img).all()\n"
-        "assert img.mean() > 0\n"
+        "scene = make_test_scene(subdivisions=1)\n"
+        "for kw in (dict(intersector='split'), dict(), "
+        "dict(mode='bvh_heatmap')):\n"
+        "    cfg = ft.RenderConfig(width=32, height=32, bounces=2,\n"
+        "        extra_refraction_iters=0, **kw)\n"
+        "    r = ft.Renderer(scene, cfg, device='cpu')\n"
+        "    img = r.step().hdr_image()\n"
+        "    assert img.shape == (32, 32, 3) and np.isfinite(img).all()\n"
+        "    assert img.mean() > 0\n"
+        "assert ft.RenderConfig().intersector == 'walk'\n"
         "assert not any(m == 'jax' or m.startswith('jax.')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")

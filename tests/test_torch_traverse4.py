@@ -147,9 +147,75 @@ def test_undersized_stack_raises(setup):
 def test_rejects_other_tree_widths(setup):
     pk, o, d, _ = setup
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
-    with pytest.raises(ValueError, match="8-wide"):
+    with pytest.raises(ValueError, match="8- or 16-wide"):
         packet_traverse4(t(pk.nodes), t(pk.leaves), V3(*map(t, o)),
-                         V3(*map(t, d)), leaf_size=8, tree_width=16)
+                         V3(*map(t, d)), leaf_size=8, tree_width=4)
+
+
+@pytest.fixture(scope="module")
+def setup16():
+    """tests/test_fastbvh.py's split-kernel setup, packed 16-wide."""
+    rng = np.random.default_rng(42)
+    centers = rng.uniform(-1, 1, size=(400, 1, 3))
+    verts = (centers + rng.normal(size=(400, 3, 3)) * 0.05).astype(np.float32)
+    bvh = build_bvh_fast(*triangle_aabbs(verts), leaf_size=8)
+    gather = np.where(bvh.slot_tri < 0, 0, bvh.slot_tri)
+    v = verts[gather]
+    v[bvh.slot_tri < 0] = 0.0
+    pk = packing.pack_bvh(bvh.left, bvh.right, bvh.tri_offset,
+                          bvh.node_min, bvh.node_max, v[:, 0],
+                          v[:, 1] - v[:, 0], v[:, 2] - v[:, 0],
+                          leaf_size=8, width=16)
+    return pk
+
+
+def test_width16_plain_matches_pallas_kernel(setup, setup16):
+    """The plain version at width 16 against JAX packet_traverse4(...,
+    tree_width=16)."""
+    import jax.numpy as jnp
+    from fspt_tpu.core.vec import V3 as JV3
+    from fspt_tpu.ops.traverse4 import packet_traverse4 as jax_traverse4
+    _, o, d, tm = setup
+    pk = setup16
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    sd = 16 * (pk.depth + 2)
+    ours = packet_traverse4(t(pk.nodes), t(pk.leaves), V3(*map(t, o)),
+                            V3(*map(t, d)), t(tm), leaf_size=8,
+                            stack_depth=sd + 32, tree_width=16)
+    ref = jax_traverse4(jnp.asarray(pk.nodes), jnp.asarray(pk.leaves),
+                        JV3(*map(jnp.asarray, o)), JV3(*map(jnp.asarray, d)),
+                        jnp.asarray(tm), leaf_size=8, stack_depth=sd + 32,
+                        tree_width=16, interpret=True, **KNOBS)
+    assert (ours.slot >= 0).sum() > 5
+    _assert_hits(ours, ref)
+
+
+def test_width16_split_render_matches_width8():
+    """A 16-wide scene renders under "split" (as it does in fspt_tpu, whose
+    integrator passes tree_width=width to packet_traverse4), and its hits
+    are the 8-wide scene's (tests/test_fastbvh.py:151-188)."""
+    from fspt_tpu_torch.config import RenderConfig
+    from fspt_tpu_torch.core import integrator
+    from fspt_tpu_torch.core.camera import generate_rays
+    from fspt_tpu_torch.core.rng import key, stream_uniforms
+    from fspt_tpu_torch.testing import make_test_scene
+    from fspt_tpu_torch.scene.schema import scene_to_torch
+    cfg = RenderConfig(width=32, height=32, intersector="split")
+    hits = {}
+    for width in (8, 16):
+        scene = make_test_scene(subdivisions=2, bvh_width=width)
+        assert scene.meta.bvh_width == width
+        arrays = scene_to_torch(scene.arrays, "cpu")
+        cam = scene.camera
+        o, d = generate_rays(torch.tensor(cam.position),
+                             torch.tensor(cam.direction), cam.fov_scale,
+                             cam.focal_depth, cam.aperture, (32, 32),
+                             stream_uniforms(key(0), 0, (4, 32 * 32)))
+        hits[width] = integrator.intersect(arrays, cfg, scene.meta, o, d)
+    assert (hits[8].slot >= 0).float().mean() > 0.3
+    assert torch.equal(hits[16].slot, hits[8].slot)
+    np.testing.assert_allclose(hits[16].t.numpy(), hits[8].t.numpy(),
+                               rtol=1e-5)
 
 
 def test_plain_version_does_not_count_launches(setup):
@@ -178,5 +244,20 @@ def test_cuda_kernel_bit_exact_vs_plain(setup, cuda_device, any_hit):
     assert packet_traverse4.launches == before + 1
     ref = _port(pk, o, d, tm, any_hit=any_hit, device=cuda_device,
                 fn=packet_traverse4_reference)
+    for f in ours._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_width16_bit_exact_vs_plain(setup, setup16, cuda_device):
+    _, o, d, tm = setup
+    pk = setup16
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    args = (t(pk.nodes), t(pk.leaves), V3(*map(t, o)), V3(*map(t, d)),
+            t(tm))
+    kw = dict(leaf_size=8, stack_depth=16 * (pk.depth + 2) + 32,
+              tree_width=16)
+    ours = packet_traverse4(*args, **kw)
+    ref = packet_traverse4_reference(*args, **kw)
     for f in ours._fields:
         assert torch.equal(getattr(ours, f), getattr(ref, f)), f

@@ -7,9 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: name, `nvidia-smi` name and power limit, torch/CUDA versions;
-  2. build: nvcc builds csrc/traverse4.cu and csrc/walk.cu concurrently into
-     fspt_tpu_torch/_build/; nvcc seconds and each kernel's registers and
-     spills;
+  2. build: nvcc builds the five sources of csrc/ (traverse4, walk, walk5,
+     dense_mt, micro) concurrently into fspt_tpu_torch/_build/; nvcc
+     seconds and each kernel's registers and spills;
   3. scene: the bench scene (82k-triangle bunny stand-in) onto the card;
   4. kernel vs plain, traverse4 ("split"): the CUDA kernel against its plain
      PyTorch version on one sample's 262,144 primary rays and on the port's
@@ -38,7 +38,19 @@ Phases (one line each; any failure raises and exits non-zero):
      walk1's launch count checked;
  11. heatmap: mode="bvh_heatmap" at 512x512, 1 spp; mean lane count; PNG;
  12. CLI: `python -m fspt_tpu_torch render` of a tiny scene file with and
-     without --no-compact in a subprocess; each must exit 0 and write a PNG.
+     without --no-compact in a subprocess; each must exit 0 and write a PNG;
+ 13. v5 (fspt_tpu_torch/scripts): the captured bounce-0 launch of the
+     round-5 studies; packet_traverse5 (csrc/walk5.cu) at its defaults
+     against its plain version — nearest, any-hit and clipped runs bit-equal,
+     per-walk visits included — and its slots against traverse4's on the
+     same launch (equal up to coplanar ties); then the v4/v5 sweep of
+     perf_r5i.main(), walk5's launch count read around it;
+ 14. dense MT: csrc/dense_mt.cu against its plain version, bit-equal, on
+     stand-in tiles and on 64 tiles of captured rays, T = 64 and 128; then
+     the two-level study perf_r5_treelet.main(), its launch count read;
+ 15. micro: csrc/micro.cu against its plain version at k=64 for all eight
+     variants, bit-equal; then perf_r5d.main() at K=4096 (ns/substep), its
+     launch count read.
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last the result line.  Images go to OUT_DIR (below).
 
@@ -131,6 +143,8 @@ def ptxas_summary(log):
             walk = re.search(r"walk_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
                              name)
             w4 = re.search(r"walk4_kernelILi(\d+)ELb(\d)E", name)
+            w5 = re.search(r"walk5_kernelILi(\d+)ELb(\d)E", name)
+            one = re.search(r"(dense_mt|micro)_kernelILi(\d+)E", name)
             if walk:
                 g, tw, a, lc, v1 = walk.groups()
                 entry = {"kernel": f"walk<group={g},width={tw},any={a},"
@@ -138,6 +152,12 @@ def ptxas_summary(log):
             elif w4:
                 entry = {"kernel": f"walk4<width={w4.group(1)},"
                                    f"any={w4.group(2)}>"}
+            elif w5:
+                entry = {"kernel": f"walk5<width={w5.group(1)},"
+                                   f"any={w5.group(2)}>"}
+            elif one:
+                arg = "T" if one.group(1) == "dense_mt" else "variant"
+                entry = {"kernel": f"{one.group(1)}<{arg}={one.group(2)}>"}
             else:
                 entry = {"kernel": name}
             out.append(entry)
@@ -279,12 +299,17 @@ def main():
     from fspt_tpu_torch.ops import _build
     from fspt_tpu_torch.ops.traverse3 import load_walk
     from fspt_tpu_torch.ops.traverse4 import load_traverse4
+    from fspt_tpu_torch.scripts.perf_r5_treelet import load_dense_mt
+    from fspt_tpu_torch.scripts.perf_r5d import load_micro
+    from fspt_tpu_torch.scripts.traverse5_proto import load_walk5
+    sources = ("traverse4", "walk", "walk5", "dense_mt", "micro")
     t0 = time.perf_counter()
-    _build.build_all(["traverse4", "walk"])
-    load_traverse4()
-    load_walk()
+    _build.build_all(sources)
+    for load in (load_traverse4, load_walk, load_walk5, load_dense_mt,
+                 load_micro):
+        load()
     wall = time.perf_counter() - t0
-    for name in ("traverse4", "walk"):
+    for name in sources:
         info = _build.build_info[name]
         say("build", kernel=name, seconds=f"{wall:.2f}",
             nvcc_seconds=f"{info['seconds']:.2f}",
@@ -550,6 +575,128 @@ def main():
             seconds=f"{time.perf_counter() - t0:.2f}",
             png=os.path.relpath(out, HERE))
 
+    # ---- 13. v5 on the captured bounce-0 launch --------------------------
+    from fspt_tpu_torch.scripts import (perf_r5_treelet, perf_r5d, perf_r5i,
+                                        r5common)
+    from fspt_tpu_torch.scripts.traverse5_proto import (
+        packet_traverse5, packet_traverse5_reference)
+    t0 = time.perf_counter()
+    so, sd, stm, sa = r5common.capture_bounce0(scene, a, meta,
+                                               perf_r5i.bench_config())
+    sdep = meta.pk_stack_depth + 16
+    say("capture", lanes=so.x.shape[0], active=int(sa.sum()),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    launch = (a.pk_nodes, a.pk_leaves, so, sd, stm)
+    v5_kw = dict(leaf_size=meta.leaf_size, stack_depth=sdep)
+    ms, plain_ms, err, hit5 = check_launch(
+        "walk5 bounce0", packet_traverse5, packet_traverse5_reference,
+        launch, v5_kw)
+    rows[("walk5", "bounce0")] = (ms, plain_ms)
+    max_err["walk5"] = err
+    hit4 = packet_traverse4(*launch, **v5_kw)
+    same = hit5.slot == hit4.slot
+    tie = torch.isclose(hit5.t, hit4.t, rtol=1e-5, atol=1e-6)
+    slot_match = float(same.float().mean())
+    if slot_match < 0.9999 or not bool((same | tie).all()):
+        raise AssertionError(f"walk5 against traverse4: slot_match "
+                             f"{slot_match:.6f}, "
+                             f"{int((~(same | tie)).sum())} non-tie misses")
+    say("walk5_vs_traverse4", lanes=so.x.shape[0],
+        slot_match=f"{slot_match:.6f}", ties=int((~same).sum()),
+        mean_visits_per_walk=f"{hit5.visits.float().mean().item():.2f}")
+    packet_traverse5.launches = 0
+    r5i = perf_r5i.main(scene)
+    v5_launches = packet_traverse5.launches
+    if len(r5i["sets"]) != len(perf_r5i.SWEEP) or v5_launches == 0:
+        raise AssertionError(f"perf_r5i ran {len(r5i['sets'])} sets with "
+                             f"{v5_launches} walk5 launches")
+    say("perf_r5i", sets=len(r5i["sets"]), walk5_launches=v5_launches,
+        v4_ms=f"{r5i['t4'] * 1e3:.3f}",
+        best_v5_ms=f"{r5i['best'][0] * 1e3:.3f}",
+        verdict="GO" if r5i["go"] else "NO-GO", card=repr(smi))
+
+    # ---- 14. dense MT -----------------------------------------------------
+    dense_mt, launch_dense_mt = (perf_r5_treelet.dense_mt,
+                                 perf_r5_treelet.launch_dense_mt)
+    leaves = a.pk_leaves
+    n_real = 64
+    planes = torch.stack([*so, *sd, stm])[:, :n_real * 1024]
+    real_rays = planes.reshape(7, n_real, 8, 128).permute(1, 0, 2, 3)
+    real_rays = real_rays.contiguous()
+    for T in perf_r5_treelet.TREELETS:
+        n_tl = leaves.shape[0] // (T // 8)
+        # real tiles: each tile's treelet holds the traverse4 hit of its
+        # first hitting lane (so that rays hit), else a random one
+        first = hit4.slot[:n_real * 1024].reshape(n_real, 1024)
+        has = (first >= 0).any(1)
+        lane = torch.argmax((first >= 0).to(torch.int32), 1)
+        tl_hit = torch.clamp(first[torch.arange(n_real, device=dev), lane]
+                             // T, max=n_tl - 1)
+        rnd = torch.randint(0, n_tl, (n_real,), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(T))
+        real_tl = torch.where(has, tl_hit, rnd).to(torch.int32)[:, None]
+        for label, (tl, rays) in (
+                ("stand-in", perf_r5_treelet.stand_in_tiles(1024, n_tl,
+                                                            dev)),
+                ("captured", (real_tl.contiguous(), real_rays))):
+            tk, sk = dense_mt(tl, leaves, rays, T)
+            tp, sp = perf_r5_treelet.dense_mt_reference(tl, leaves, rays, T)
+            torch.cuda.synchronize()
+            if not (torch.equal(tk, tp) and torch.equal(sk, sp)):
+                raise AssertionError(f"dense_mt T={T} {label}: kernel and "
+                                     "plain version differ")
+            max_err["dense_mt"] = max(max_err.get("dense_mt", 0.0),
+                                      float((tk - tp).abs().max()))
+            say("dense_mt", T=T, tiles=tl.shape[0], rays=label,
+                hits=int((sk >= 0).sum()), bit_equal="t,slot")
+    dense_mt.launches = 0
+    tre = perf_r5_treelet.main(scene)
+    dense_launches = dense_mt.launches
+    if dense_launches == 0:
+        raise AssertionError("perf_r5_treelet launched dense_mt no time")
+    n_tiles = tre[64]["n_tiles"]
+    tl, rays = perf_r5_treelet.stand_in_tiles(n_tiles,
+                                              leaves.shape[0] // 8, dev)
+    ms = cuda_ms(lambda: launch_dense_mt(tl, leaves, rays, 64), 10)
+    plain_ms = cuda_ms(lambda: perf_r5_treelet.dense_mt_reference(
+        tl, leaves, rays, 64), 1)
+    rows[("dense_mt", "stage_e")] = (ms, plain_ms)
+    say("treelet", dense_launches=dense_launches, T=64, tiles=n_tiles,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        verdicts=",".join("GO" if tre[T]["go"] else "NO-GO"
+                          for T in perf_r5_treelet.TREELETS),
+        card=repr(smi))
+
+    # ---- 15. micro ----------------------------------------------------------
+    table, mrays = perf_r5d.make_inputs(dev, scene)
+    for v in perf_r5d.VARIANTS:
+        ko = perf_r5d.micro(table, mrays, v, 64)
+        po = perf_r5d.micro_reference(table, mrays, v, 64)
+        torch.cuda.synchronize()
+        same = (ko == po) | (ko.isnan() & po.isnan())
+        if not bool(same.all()):
+            raise AssertionError(f"micro {v}: kernel and plain version "
+                                 f"differ on {int((~same).sum())} lanes")
+        max_err["micro"] = max(max_err.get("micro", 0.0), float(
+            torch.where(same, 0.0, (ko - po).abs()).max()))
+        say("micro", variant=v, k=64, bit_equal="out",
+            hits=int((ko < 1e9).sum()))
+    perf_r5d.micro.launches = 0
+    ns = perf_r5d.main(scene)
+    micro_launches = perf_r5d.micro.launches
+    if micro_launches == 0:
+        raise AssertionError("perf_r5d launched micro no time")
+    ms = cuda_ms(lambda: perf_r5d.micro(table, mrays, "full"), 5)
+    plain_ms = cuda_ms(lambda: perf_r5d.micro_reference(table, mrays,
+                                                        "full"), 1,
+                       warmup=False)
+    rows[("micro", "full")] = (ms, plain_ms)
+    say("perf_r5d", micro_launches=micro_launches, k=perf_r5d.K,
+        **{f"{v}_ns": f"{x:.1f}" for v, x in ns.items()},
+        full_ms=f"{ms:.4f}", full_plain_ms=f"{plain_ms:.4f}",
+        card=repr(smi))
+
     # ---- the kernels and the result --------------------------------------
     def row(name, source, replaces, launches):
         ms, plain = rows.get((name, "bounce0"), rows[(name, "primary")])
@@ -559,6 +706,13 @@ def main():
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain,
                 "primary_ms": pms, "primary_plain_ms": pplain}
 
+    def study_row(name, launch, source, replaces, launches):
+        ms, plain = rows[(name, launch)]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_err.get(name, 0.0), "ms": ms,
+                "plain_ms": plain, "launch": launch}
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         row("traverse4", "fspt_tpu_torch/csrc/traverse4.cu",
@@ -566,7 +720,13 @@ def main():
         row("walk3", "fspt_tpu_torch/csrc/walk.cu",
             "fspt_tpu/ops/traverse3.py:64", walk_launches),
         row("walk1", "fspt_tpu_torch/csrc/walk.cu",
-            "fspt_tpu/ops/traverse.py:243", packet_launches)]}), flush=True)
+            "fspt_tpu/ops/traverse.py:243", packet_launches),
+        study_row("walk5", "bounce0", "fspt_tpu_torch/csrc/walk5.cu",
+                  "scripts/traverse5_proto.py:70", v5_launches),
+        study_row("dense_mt", "stage_e", "fspt_tpu_torch/csrc/dense_mt.cu",
+                  "scripts/perf_r5_treelet.py:94", dense_launches),
+        study_row("micro", "full", "fspt_tpu_torch/csrc/micro.cu",
+                  "scripts/perf_r5d.py:42", micro_launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -700,13 +700,22 @@ def _attr_table(scene):
 
 
 def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
-                       env_hw, attr, tex: TexTables):
+                       env_hw, attr, tex: TexTables, trace_fn=None):
     """One shading+scatter iteration (tracer.fs:447-518): hit attributes,
     atlas fetches, emissive add, lobe choice, env NEE (and area-light NEE
     with cfg.use_light_nee) with MIS, and the traversal: ONE nearest-hit
     launch of the scatter and shadow rays together, or, with
     cfg.split_shadow, a nearest-hit launch of the scatter rays and an
-    any-hit launch of the shadow rays."""
+    any-hit launch of the shadow rays.
+
+    trace_fn(o, d, active, tmax, any_hit=False) -> PacketHit (measurement
+    only, as in the JAX version: scripts/r5common.py captures the bounce-0
+    launch with it) replaces the sorted_intersect launches; production
+    callers leave it None."""
+    if trace_fn is None:
+        def trace_fn(o, d, a, tmax, any_hit=False):
+            return sorted_intersect(scene, cfg, meta, o, d, a, tmax,
+                                    any_hit=any_hit)
     active = s.active & (s.slot >= 0)
     slot = torch.clamp(s.slot, min=0)
 
@@ -871,16 +880,14 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
 
     n = active.shape[0]
     if cfg.split_shadow:
-        nxt = sorted_intersect(scene, cfg, meta, seg_o[0], seg_d[0],
-                               seg_a[0], seg_t[0])
-        occ = sorted_intersect(scene, cfg, meta, vec.cat(seg_o[1:]),
-                               vec.cat(seg_d[1:]), torch.cat(seg_a[1:]),
-                               torch.cat(seg_t[1:]), any_hit=True)
+        nxt = trace_fn(seg_o[0], seg_d[0], seg_a[0], seg_t[0])
+        occ = trace_fn(vec.cat(seg_o[1:]), vec.cat(seg_d[1:]),
+                       torch.cat(seg_a[1:]), torch.cat(seg_t[1:]),
+                       any_hit=True)
         seg_slot = lambda i: occ.slot[(i - 1) * n:i * n]
     else:
-        hits = sorted_intersect(scene, cfg, meta, vec.cat(seg_o),
-                                vec.cat(seg_d), torch.cat(seg_a),
-                                torch.cat(seg_t))
+        hits = trace_fn(vec.cat(seg_o), vec.cat(seg_d), torch.cat(seg_a),
+                        torch.cat(seg_t))
         nxt = PacketHit(*(a[:n] for a in hits))
         seg_slot = lambda i: hits.slot[i * n:(i + 1) * n]
     shadow_open = seg_slot(1) < 0

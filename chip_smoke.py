@@ -7,15 +7,25 @@ Run from the root of a checkout, with no arguments:
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: name, `nvidia-smi` name and power limit, torch/CUDA versions;
-  2. build: nvcc builds the five sources of csrc/ (traverse4, walk, walk5,
-     dense_mt, micro) concurrently into fspt_tpu_torch/_build/; nvcc
-     seconds and each kernel's registers and spills;
-  3. scene: the bench scene (82k-triangle bunny stand-in) onto the card;
+  2. build: nvcc builds the eight sources of csrc/ (traverse4, walk, walk5,
+     dense_mt, micro, the first designs traverse4_v0 and walk_v0 that only
+     the [versus] and [shape] lines launch, and walk_divide, a measurement
+     build of walk that only scripts/perf_walk_launches.py launches)
+     concurrently into fspt_tpu_torch/_build/; nvcc seconds and each kernel's registers and
+     spills;
+  3. scene: the bench scene (82k-triangle bunny stand-in) onto the card; how
+     full its 8-wide nodes and 8-triangle leaves are;
   4. kernel vs plain, traverse4 ("split"): the CUDA kernel against its plain
      PyTorch version on one sample's 262,144 primary rays and on the port's
      own bounce-0 scatter+shadow launch — bit-equal slot/visits/t/u/v,
      any-hit flags and per-ray tmax clipping — plus 4,096 rays against
-     brute-force Moller-Trumbore over every triangle; times of both;
+     brute-force Moller-Trumbore over every triangle; times of both; a
+     [shape] line per launch (the per-ray visits' sum, mean, p50/p99/max,
+     node/leaf split, the valid children and real triangles a visit tested,
+     dead and root-only shares, the lockstep loss of 32
+     and of 4 rays a warp, the launch's bound) and a [versus] line (the
+     first design and the current kernel timed in turns: old, new, new,
+     old);
   5. width 16: the bench scene packed 16-wide; traverse4 and walk3 on the
      primary rays, each bit-equal to its plain version and finding the
      8-wide tables' slots;
@@ -23,7 +33,14 @@ Phases (one line each; any failure raises and exits non-zero):
      and on the port's own sorted bounce-0 launch of the CLI's --no-compact
      configuration (2 x 262,144 lanes), walk1 ("packet") on the primary
      rays; nearest, any-hit and clipped runs bit-equal, lane counts
-     bit-equal on the primary rays; times of both;
+     bit-equal on the primary rays; times of both; for walk3 a [shape]
+     line per launch (per-group visits with p50/p99/max, node/leaf split,
+     the bound, where the launch order's last block ends in visits against
+     an even share over 5 blocks an SM, and the kernel's time with the
+     blocks an SM holds cut to 4 and to 1 by padding shared memory: a time
+     that hardly moves means the per-visit latency chain bounds it, one
+     that scales means instruction throughput) and a [versus] line; a
+     [versus] line for walk1;
   7. golden: 32x32 renders on the card against tests/goldens/bunny_class.npy
      under "split" and under the default "walk", and heatmap.npy
      (tests/test_goldens.py's 5% bound);
@@ -51,8 +68,16 @@ Phases (one line each; any failure raises and exits non-zero):
  15. micro: csrc/micro.cu against its plain version at k=64 for all eight
      variants, bit-equal; then perf_r5d.main() at K=4096 (ns/substep), its
      launch count read.
-Then one JSON line with the kernels' numbers, the card's name and power
-limit, and last the result line.  Images go to OUT_DIR (below).
+Then one JSON line with the kernels' numbers (each row with its bound from
+ops/traverse.py `traversal_bound`, computed from this run's visit counts and
+the valid children and real triangles those visits tested, and its launches
+per step), the card's name and power limit, and last the
+result line.  Images go to OUT_DIR (below).
+
+    python3 chip_smoke.py --kernels-only
+
+stops after phase 6 (build, kernel checks, [shape] and [versus] lines) and
+prints no result line: a short call after a kernel edit.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -132,6 +157,126 @@ def compare(name, hit, ref, fields=("t", "slot", "u", "v", "visits")):
                for f in ("t", "u", "v"))
 
 
+def versus(label, old, new, reps=20):
+    """The first design against the current kernel on one launch, timed in
+    turns (old, new, new, old); returns (old ms, new ms)."""
+    t = [cuda_ms(f, reps) for f in (old, new, new, old)]
+    old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    say("versus", launch=label, old_ms=f"{old_ms:.4f}",
+        new_ms=f"{new_ms:.4f}", speedup=f"{old_ms / new_ms:.2f}",
+        turns=",".join(f"{x:.4f}" for x in t))
+    return old_ms, new_ms
+
+
+def same_hits(label, a, b):
+    import torch
+    for f in a._fields:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{label}: the two designs differ in {f}")
+
+
+def lockstep_loss(visits, width):
+    """Sum over consecutive `width`-ray sets of width x the set's longest
+    walk, over the sum of all walks: the factor by which lanes that wait
+    for their set's longest ray inflate the work."""
+    import torch
+    pad = (-visits.numel()) % width
+    v = torch.cat([visits, visits.new_zeros(pad)]).reshape(-1, width)
+    return float(v.max(1).values.sum() * width) / float(visits.sum())
+
+
+def launch_bound(counts, lanes, tree_width, leaf_size, table_rows, group=1):
+    """ops/traverse.py `traversal_bound` of a launch from the tally its plain
+    version made: visits, and the valid children and real triangles those
+    visits tested."""
+    from fspt_tpu_torch.ops.traverse import traversal_bound
+    return traversal_bound(lanes, tree_width, leaf_size, table_rows,
+                           counts["node"], counts["leaf"],
+                           child_tests=counts["children"],
+                           tri_tests=counts["triangles"], group=group)
+
+
+def tested(counts):
+    """The mean valid children a node visit and real triangles a leaf visit
+    of a tally."""
+    per = lambda part, whole: f"{counts[part] / max(counts[whole], 1):.2f}"
+    return dict(children_per_node_visit=per("children", "node"),
+                triangles_per_leaf_visit=per("triangles", "leaf"))
+
+
+def bound_fields(b):
+    return dict(bound_ms=f"{b['bound_ms']:.5f}", bound_by=b["bound_by"],
+                mbytes=f"{b['bytes'] / 1e6:.2f}",
+                gflop=f"{b['flops'] / 1e9:.4f}")
+
+
+def shape_traverse4(label, hit, tmax, counts, bound, ms):
+    """The per-ray visits of a traverse4 launch, and its bound."""
+    import torch
+    v = hit.visits
+    q = torch.quantile(v.float(), torch.tensor([0.5, 0.99], device=v.device))
+    dead = (float((tmax <= 0).float().mean()) if tmax is not None else 0.0)
+    if counts["node"] + counts["leaf"] != int(v.sum()):
+        raise AssertionError(f"{label}: node + leaf visits differ from "
+                             "the kernel's visits")
+    say("shape", launch=label, lanes=v.numel(), visits=int(v.sum()),
+        node_visits=counts["node"], leaf_visits=counts["leaf"],
+        **tested(counts), mean=f"{v.float().mean().item():.3f}",
+        p50=f"{q[0].item():.0f}",
+        p99=f"{q[1].item():.0f}", max=int(v.max()),
+        dead_share=f"{dead:.4f}",
+        root_only_share=f"{float((v == 1).float().mean()):.4f}",
+        lockstep_loss_32=f"{lockstep_loss(v, 32):.3f}",
+        lockstep_loss_4=f"{lockstep_loss(v, 4):.3f}",
+        **bound_fields(bound), share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
+
+
+def inorder_makespan(visits, slots):
+    """Groups handed out in launch order to `slots` resident blocks, each
+    taking its visit count: (the last block's end, the sum over slots)."""
+    import heapq
+    v = visits.tolist()
+    ends = [0] * min(slots, len(v))
+    for x in v:
+        heapq.heappush(ends, heapq.heappop(ends) + x)
+    return max(ends), sum(v) / slots
+
+
+# dynamic shared memory that leaves room for 4 blocks and for 1 block on an
+# SM (227 KiB), beside each source's static 16 KiB (walk) or 3 KiB (walk_v0)
+WALK_PADS = {"walk": (("full", 0), ("4", 40 * 1024), ("1", 120 * 1024)),
+             "walk_v0": (("full", 0), ("4", 50 * 1024), ("1", 120 * 1024))}
+
+
+def shape_walk3(label, hit, counts, bound, ms, args, kw, group=128):
+    """The per-group visits of a walk3 launch, its bound, how far the launch
+    order's longest groups stretch it (a launch ends when its last group
+    does), and its time with the blocks an SM can hold cut by padding shared
+    memory."""
+    import torch
+    from fspt_tpu_torch.ops._versus import walk_launcher
+    g = hit.visits[::group]
+    if counts["node"] + counts["leaf"] != int(g.sum()) * group:
+        raise AssertionError(f"{label}: node + leaf visits differ from "
+                             "the kernel's visits")
+    q = torch.quantile(g.float(), torch.tensor([0.5, 0.99], device=g.device))
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    last, even = inorder_makespan(g.cpu(), sms * 5)
+    times = {}
+    for source, pads in WALK_PADS.items():
+        for blocks, pad in pads:
+            fn = walk_launcher(source, args, kw, pad_bytes=pad)
+            times[f"{source}_ms_blocks_{blocks}"] = f"{cuda_ms(fn, 5):.4f}"
+    say("shape", launch=label, lanes=hit.visits.numel(), groups=g.numel(),
+        group_visits=int(g.sum()), mean=f"{g.float().mean().item():.2f}",
+        p50=f"{q[0].item():.0f}", p99=f"{q[1].item():.0f}", max=int(g.max()),
+        last_block_ends_at_visits=last, even_share_visits=f"{even:.0f}",
+        node_group_visits=counts["node"] // group,
+        leaf_group_visits=counts["leaf"] // group, **tested(counts),
+        **bound_fields(bound),
+        share_of_bound=f"{bound['bound_ms'] / ms:.4f}", **times)
+
+
 def ptxas_summary(log):
     """One line per kernel entry of a `ptxas -v` log: template arguments,
     registers, spill stores/loads and stack frame."""
@@ -173,19 +318,24 @@ def ptxas_summary(log):
     return out
 
 
-def check_launch(label, fn, ref_fn, args, kw, base_hit=None, lanes=False):
+def check_launch(label, fn, ref_fn, args, kw, base_hit=None, lanes=False,
+                 counts=None):
     """A captured launch, kernel against plain version: nearest, any-hit
     and per-ray-tmax-clipped runs bit-equal (and lane counts when asked),
     any-hit flags equal to the nearest hit's; returns (kernel ms, plain ms,
-    max |diff| of t/u/v, nearest hit)."""
+    max |diff| of t/u/v, nearest hit).  `counts`, a dict, receives the
+    nearest run's node and leaf visits from the plain version."""
     import torch
     nodes, leaves, ro, rd, tmax = args
     dev = nodes.device
     n = ro.x.shape[0]
     run_k = lambda **x: fn(nodes, leaves, ro, rd, tmax, **{**kw, **x})
     run_p = lambda **x: ref_fn(nodes, leaves, ro, rd, tmax, **{**kw, **x})
-    hit, ref = run_k(), run_p()
+    tally = {}
+    hit, ref = run_k(), run_p(counts=tally)
     torch.cuda.synchronize()
+    if counts is not None:
+        counts.update({k: int(v) for k, v in tally.items()})
     err = compare(f"{label} nearest", hit, ref)
     anyk, anyp = run_k(any_hit=True), run_p(any_hit=True)
     compare(f"{label} any-hit", anyk, anyp)
@@ -269,7 +419,7 @@ def check_image(r, label, size):
     return hdr
 
 
-def main():
+def main(kernels_only=False):
     if not os.path.isdir(os.path.join(HERE, "fspt_tpu_torch")):
         raise SystemExit("chip_smoke.py: fspt_tpu_torch/ is not beside this "
                          "script; run it from a checkout of the repository")
@@ -302,7 +452,8 @@ def main():
     from fspt_tpu_torch.scripts.perf_r5_treelet import load_dense_mt
     from fspt_tpu_torch.scripts.perf_r5d import load_micro
     from fspt_tpu_torch.scripts.traverse5_proto import load_walk5
-    sources = ("traverse4", "walk", "walk5", "dense_mt", "micro")
+    sources = ("traverse4", "walk", "walk5", "dense_mt", "micro",
+               "traverse4_v0", "walk_v0", "walk_divide")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for load in (load_traverse4, load_walk, load_walk5, load_dense_mt,
@@ -322,13 +473,18 @@ def main():
     from fspt_tpu_torch.core import integrator, rng
     from fspt_tpu_torch.core.camera import generate_rays
     from fspt_tpu_torch.core.vec import V3
+    from fspt_tpu_torch.ops import traverse3
     from fspt_tpu_torch.ops.traverse import (check_stack_overflow,
                                              packet_traverse,
-                                             packet_traverse_reference)
+                                             packet_traverse_reference,
+                                             real_triangles,
+                                             traversal_bound)
     from fspt_tpu_torch.ops.traverse3 import (packet_traverse3,
                                               packet_traverse3_reference)
     from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
                                               packet_traverse4_reference)
+    from fspt_tpu_torch.ops._versus import (TRAVERSE4_SOURCES, WALK_SOURCES,
+                                            traverse4_launcher, walk_launcher)
     from fspt_tpu_torch.testing import (icosphere_obj,
                                         make_bunny_standin_scene,
                                         make_test_scene)
@@ -345,10 +501,15 @@ def main():
                        compact_schedule=BENCH_SCHEDULE)
     r = Renderer(scene, cfg, device="cuda")
     a, meta = r.arrays, scene.meta
+    children = (a.pk_nodes[:, 48:56] > -1e8).sum(1)
+    edges = a.pk_leaves[:, :72].reshape(-1, 8, 9)[:, :, 3:].abs().sum(-1)
     say("scene", triangles=scene.num_triangles,
         node_rows=a.pk_nodes.shape[0], leaf_rows=a.pk_leaves.shape[0],
         table_mb=f"{(a.pk_nodes.numel() + a.pk_leaves.numel()) * 4 / 1e6:.1f}",
         stack_depth=max(cfg.stack_depth, meta.pk_stack_depth) + 16,
+        children_per_node=f"{children.float().mean().item():.2f}",
+        nodes_with_4_or_fewer=f"{(children <= 4).float().mean().item():.3f}",
+        triangles_per_leaf=f"{(edges > 0).sum(1).float().mean().item():.2f}",
         seconds=f"{time.perf_counter() - t0:.2f}")
 
     # ---- 4. kernel vs plain, traverse4 ----------------------------------
@@ -367,17 +528,29 @@ def main():
     torch.cuda.synchronize()
     check_stack_overflow(dev)
 
-    rows = {}
+    table_rows = a.pk_nodes.shape[0] + a.pk_leaves.shape[0]
+
+    rows, bounds, earlier = {}, {}, {}
     max_err = {"traverse4": 0.0, "walk3": 0.0, "walk1": 0.0}
     for label, (args, kw) in (("primary", captured[0]),
                               ("bounce0", captured[1])):
+        counts = {}
         ms, plain_ms, err, hit = check_launch(
             f"traverse4 {label}", packet_traverse4,
-            packet_traverse4_reference, args, kw)
+            packet_traverse4_reference, args, kw, counts=counts)
         rows[("traverse4", label)] = (ms, plain_ms)
         max_err["traverse4"] = max(max_err["traverse4"], err)
         if label == "primary":
             primary8 = hit
+        bound = launch_bound(counts, hit.t.numel(), kw.get("tree_width", 8),
+                             kw["leaf_size"], table_rows)
+        bounds[("traverse4", label)] = bound
+        shape_traverse4(f"traverse4 {label}", hit, args[4], counts, bound, ms)
+        old, new = (traverse4_launcher(src, args, kw)
+                    for src in TRAVERSE4_SOURCES)
+        same_hits(f"traverse4 {label}", old(), new())
+        earlier[("traverse4", label)], _ = versus(f"traverse4 {label}", old,
+                                                  new)
 
     # brute force over all triangles on a 4,096-ray subset: 2,048 primary
     # rays and 2,048 live (tmax > 0) rays of the bounce-0 launch
@@ -437,18 +610,42 @@ def main():
     check_stack_overflow(dev)
     for label, (args, kw) in (("primary", walk_calls[0]),
                               ("bounce0", walk_calls[1])):
-        ms, plain_ms, err, _ = check_launch(
+        counts = {}
+        ms, plain_ms, err, hit = check_launch(
             f"walk3 {label}", packet_traverse3, packet_traverse3_reference,
-            args, kw, lanes=label == "primary")
+            args, kw, lanes=label == "primary", counts=counts)
         rows[("walk3", label)] = (ms, plain_ms)
         max_err["walk3"] = max(max_err["walk3"], err)
+        bound = launch_bound(counts, hit.t.numel(), kw.get("tree_width", 8),
+                             kw["leaf_size"], table_rows,
+                             group=traverse3.GROUP)
+        bounds[("walk3", label)] = bound
+        old, new = (walk_launcher(src, args, kw) for src in WALK_SOURCES)
+        same_hits(f"walk3 {label}", old(), new())
+        shape_walk3(f"walk3 {label}", hit, counts, bound, ms, args, kw)
+        earlier[("walk3", label)], _ = versus(f"walk3 {label}", old, new)
     pkt_kw = dict(leaf_size=meta.leaf_size,
                   stack_depth=max(cfg.stack_depth, meta.pk_stack_depth))
-    ms, plain_ms, err, _ = check_launch(
+    pkt_args = (a.pk_nodes, a.pk_leaves, o, d, None)
+    counts = {}
+    ms, plain_ms, err, hit = check_launch(
         "walk1 primary", packet_traverse, packet_traverse_reference,
-        (a.pk_nodes, a.pk_leaves, o, d, None), pkt_kw)
+        pkt_args, pkt_kw, counts=counts)
     rows[("walk1", "primary")] = (ms, plain_ms)
     max_err["walk1"] = err
+    bounds[("walk1", "primary")] = launch_bound(
+        counts, n, 8, meta.leaf_size, table_rows, group=1024)
+    old, new = (walk_launcher(src, pkt_args, pkt_kw, "fspt_walk1")
+                for src in WALK_SOURCES)
+    same_hits("walk1 primary", old(), new())
+    earlier[("walk1", "primary")], _ = versus("walk1 primary", old, new, 5)
+    say("shape", launch="walk1 primary", lanes=n,
+        node_group_visits=counts["node"] // 1024,
+        leaf_group_visits=counts["leaf"] // 1024, **tested(counts),
+        **bound_fields(bounds[("walk1", "primary")]),
+        share_of_bound=f"{bounds[('walk1', 'primary')]['bound_ms'] / ms:.4f}")
+    if kernels_only:
+        return
 
     # ---- 7. goldens on the card ------------------------------------------
     def golden(name, cfg_kw, steps):
@@ -588,11 +785,21 @@ def main():
         seconds=f"{time.perf_counter() - t0:.2f}")
     launch = (a.pk_nodes, a.pk_leaves, so, sd, stm)
     v5_kw = dict(leaf_size=meta.leaf_size, stack_depth=sdep)
+    counts = {}
     ms, plain_ms, err, hit5 = check_launch(
         "walk5 bounce0", packet_traverse5, packet_traverse5_reference,
-        launch, v5_kw)
+        launch, v5_kw, counts=counts)
     rows[("walk5", "bounce0")] = (ms, plain_ms)
     max_err["walk5"] = err
+    if counts["node"] + counts["leaf"] != int(hit5.visits[::128].sum()) * 128:
+        raise AssertionError("walk5: node + leaf visits differ from the "
+                             "kernel's visits")
+    bounds[("walk5", "bounce0")] = launch_bound(
+        counts, so.x.shape[0], 8, meta.leaf_size, table_rows, group=128)
+    say("shape", launch="walk5 bounce0", lanes=so.x.shape[0],
+        node_walk_visits=counts["node"] // 128,
+        leaf_walk_visits=counts["leaf"] // 128, **tested(counts),
+        **bound_fields(bounds[("walk5", "bounce0")]))
     hit4 = packet_traverse4(*launch, **v5_kw)
     same = hit5.slot == hit4.slot
     tie = torch.isclose(hit5.t, hit4.t, rtol=1e-5, atol=1e-6)
@@ -662,7 +869,16 @@ def main():
     plain_ms = cuda_ms(lambda: perf_r5_treelet.dense_mt_reference(
         tl, leaves, rays, 64), 1)
     rows[("dense_mt", "stage_e")] = (ms, plain_ms)
+    # a tile's 1,024 lanes each test the real triangles of the treelet's 64
+    # slots (8 leaf rows)
+    tile_rows = leaves[tl.long() * 8 + torch.arange(8, device=dev)]
+    tile_tris = int(real_triangles(tile_rows, 8).sum())
+    bounds[("dense_mt", "stage_e")] = traversal_bound(
+        n_tiles * 1024, 8, 8, leaves.shape[0], 0, n_tiles * 1024 * 8,
+        tri_tests=tile_tris * 1024, group=1024, out_planes=2)
     say("treelet", dense_launches=dense_launches, T=64, tiles=n_tiles,
+        triangles_per_tile=f"{tile_tris / n_tiles:.2f}",
+        **bound_fields(bounds[("dense_mt", "stage_e")]),
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         verdicts=",".join("GO" if tre[T]["go"] else "NO-GO"
                           for T in perf_r5_treelet.TREELETS),
@@ -688,39 +904,69 @@ def main():
     if micro_launches == 0:
         raise AssertionError("perf_r5d launched micro no time")
     ms = cuda_ms(lambda: perf_r5d.micro(table, mrays, "full"), 5)
-    plain_ms = cuda_ms(lambda: perf_r5d.micro_reference(table, mrays,
-                                                        "full"), 1,
-                       warmup=False)
+    counts = {}
+    plain_ms = cuda_ms(lambda: perf_r5d.micro_reference(
+        table, mrays, "full", counts=counts), 1, warmup=False)
     rows[("micro", "full")] = (ms, plain_ms)
+    # `full`: every substep is a node visit (all 8 children: the micro has no
+    # link test) and a leaf visit (the real triangles of the row it drew) of
+    # all 1,024 lanes, one row fetch per 128-lane walk
+    lanes = perf_r5d.WALKS * perf_r5d.LANES
+    bounds[("micro", "full")] = traversal_bound(
+        lanes, 8, 8, table.shape[0], lanes * perf_r5d.K, lanes * perf_r5d.K,
+        tri_tests=int(counts["triangles"]), group=perf_r5d.LANES,
+        in_planes=6, out_planes=1)
+    tris = int(counts["triangles"]) / lanes / perf_r5d.K
     say("perf_r5d", micro_launches=micro_launches, k=perf_r5d.K,
+        triangles_per_substep=f"{tris:.2f}",
+        **bound_fields(bounds[("micro", "full")]),
         **{f"{v}_ns": f"{x:.1f}" for v, x in ns.items()},
         full_ms=f"{ms:.4f}", full_plain_ms=f"{plain_ms:.4f}",
         card=repr(smi))
 
     # ---- the kernels and the result --------------------------------------
-    def row(name, source, replaces, launches):
-        ms, plain = rows.get((name, "bounce0"), rows[(name, "primary")])
+    # library_ms is null in every row: no PyTorch call computes a BVH
+    # traversal.  bound_ms: ops/traverse.py `traversal_bound` on this run's
+    # visit counts and tested children and triangles, against the published 3.35 TB/s and 67 TFLOP/s float32
+    # (the kernels are built with --fmad=false, so half of that float32
+    # rate is the most they can reach).
+    def row(name, source, replaces, launches, per_step):
+        launch = "bounce0" if (name, "bounce0") in rows else "primary"
+        ms, plain = rows[(name, launch)]
         pms, pplain = rows[(name, "primary")]
+        b, pb = bounds[(name, launch)], bounds[(name, "primary")]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain,
-                "primary_ms": pms, "primary_plain_ms": pplain}
+                "launches_per_step": per_step,
+                "max_abs_err": max_err[name], "launch": launch, "ms": ms,
+                "plain_ms": plain, "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": None,
+                "earlier_ms": earlier[(name, launch)], "primary_ms": pms,
+                "primary_plain_ms": pplain,
+                "primary_bound_ms": pb["bound_ms"],
+                "primary_bound_by": pb["bound_by"],
+                "primary_earlier_ms": earlier[(name, "primary")]}
 
     def study_row(name, launch, source, replaces, launches):
         ms, plain = rows[(name, launch)]
+        b = bounds[(name, launch)]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": max_err.get(name, 0.0), "ms": ms,
-                "plain_ms": plain, "launch": launch}
+                "launches_per_step": launches,
+                "max_abs_err": max_err.get(name, 0.0), "launch": launch,
+                "ms": ms, "plain_ms": plain, "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": None}
 
+    per_step = lambda c: integrator.traversal_launches(c, n, c.batch_spp)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         row("traverse4", "fspt_tpu_torch/csrc/traverse4.cu",
-            "fspt_tpu/ops/traverse4.py:60", split_launches),
+            "fspt_tpu/ops/traverse4.py:60", split_launches, per_step(cfg)),
         row("walk3", "fspt_tpu_torch/csrc/walk.cu",
-            "fspt_tpu/ops/traverse3.py:64", walk_launches),
+            "fspt_tpu/ops/traverse3.py:64", walk_launches,
+            per_step(walk_cfg)),
         row("walk1", "fspt_tpu_torch/csrc/walk.cu",
-            "fspt_tpu/ops/traverse.py:243", packet_launches),
+            "fspt_tpu/ops/traverse.py:243", packet_launches, per_step(pcfg)),
         study_row("walk5", "bounce0", "fspt_tpu_torch/csrc/walk5.cu",
                   "scripts/traverse5_proto.py:70", v5_launches),
         study_row("dense_mt", "stage_e", "fspt_tpu_torch/csrc/dense_mt.cu",
@@ -733,4 +979,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(kernels_only=sys.argv[1:] == ["--kernels-only"])

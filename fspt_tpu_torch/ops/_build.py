@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -49,6 +50,9 @@ def _build(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         text = f.read()
+    for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(CSRC, inc.decode()), "rb") as f:
+            text += f.read()                # an edited include rebuilds too
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"libfspt_{name}_{tag}.so")
     log = out + ".log"
@@ -93,13 +97,13 @@ def load(name: str, argtypes) -> ctypes.CDLL:
     `fspt_cuda_error_string`."""
     with _lock:
         lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        lib = ctypes.CDLL(_build(name))
+        if lib is None:
+            lib = ctypes.CDLL(_build(name))
+            lib.fspt_cuda_error_string.restype = ctypes.c_char_p
+            lib.fspt_cuda_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+        # (a later caller may name functions an earlier one did not)
         for fn, types in argtypes.items():
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = list(types)
-        lib.fspt_cuda_error_string.restype = ctypes.c_char_p
-        lib.fspt_cuda_error_string.argtypes = [ctypes.c_int]
-        _libs[name] = lib
         return lib

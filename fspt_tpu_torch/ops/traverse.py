@@ -133,17 +133,97 @@ def check_stack_overflow(device):
             "backstop")
 
 
+# ---- the least time a traversal launch could take on one H100 -------------
+
+H100_BYTES_PER_S = 3.35e12     # published HBM3 rate of the SXM card
+H100_F32_OPS_PER_S = 67.0e12   # published float32 rate outside tensor cores
+#                                (a fused multiply-add counts as two; the
+#                                kernels are built with --fmad=false, so half
+#                                of it is the most they can reach)
+SLAB_OPS = 20    # one child's box test: 6 sub, 6 mul, 4 min/max (a box has
+#                  lo <= hi, so the sign of the ray's inverse direction names
+#                  the near and the far plane of each axis), 4 compares
+TRI_OPS = 55     # one Möller–Trumbore test: 46 add/sub/mul, 1 divide, 8
+#                  compares and absolute values
+
+
+def valid_children(rows, tree_width: int):
+    """Per node row (..., 128): its children with a valid link."""
+    return (rows[..., 6 * tree_width:7 * tree_width] > -1.0e8).sum(-1)
+
+
+def real_triangles(rows, leaf_size: int):
+    """Per leaf row (..., 128): its slots that hold a triangle (a padding
+    slot is all zeros: no edge, a determinant of 0, never a hit)."""
+    slots = rows[..., :9 * leaf_size].reshape(*rows.shape[:-1], leaf_size, 9)
+    return (slots[..., 3:] != 0.0).any(-1).sum(-1)
+
+
+def tally_visits(counts: dict, kind: str, rows, lanes: int,
+                 slots: int) -> None:
+    """Add to `counts` what a plain version's loop iteration visited:
+    `rows` (k, 128), the table rows of k visits of `kind` ("node" with
+    slots = tree_width, or "leaf" with slots = leaf_size) by `lanes` rays
+    each.  "node" and "leaf" count visits, "children" and "triangles" the
+    valid children and real triangles those visits tested, all once per
+    lane."""
+    sub, per_row = (("children", valid_children) if kind == "node"
+                    else ("triangles", real_triangles))
+    counts[kind] = counts.get(kind, 0) + rows.shape[0] * lanes
+    counts[sub] = counts.get(sub, 0) + int(per_row(rows, slots).sum()) * lanes
+
+
+def traversal_bound(lanes: int, tree_width: int, leaf_size: int,
+                    table_rows: int, node_visits: int, leaf_visits: int, *,
+                    child_tests: int | None = None,
+                    tri_tests: int | None = None, group: int = 1,
+                    in_planes: int = 7, out_planes: int = 5) -> dict:
+    """The least time one H100 could take for a traversal launch: the larger
+    of its bytes over the card's memory rate and its float operations over
+    the card's float32 rate.
+
+    lanes: rays of the launch; node_visits, leaf_visits: the launch's
+    measured visit counts, each counted once per lane (a group walk's visit
+    counts once for every lane of the group, because every lane does its
+    arithmetic; `group` is the lanes that share one row fetch).
+    child_tests, tri_tests: the valid children and the real triangles those
+    visits tested, counted the same way (the `counts` tally of the plain
+    versions); an empty child slot or a leaf's padding slot needs no
+    arithmetic.  Left out, every slot counts (tree_width a node visit,
+    leaf_size a leaf visit): the most the launch could need.
+    Bytes: each ray plane read once (in_planes x 4 B a lane), each hit plane
+    written once (out_planes x 4 B), and each table row that the visits can
+    have touched read once (512 B; at most one row per fetch, at most the
+    whole table).  Operations: SLAB_OPS a child test, TRI_OPS a triangle
+    test.
+    Returns {"bytes", "flops", "bytes_ms", "flops_ms", "bound_ms",
+    "bound_by" ("bytes" or "operations")}."""
+    if child_tests is None:
+        child_tests = node_visits * tree_width
+    if tri_tests is None:
+        tri_tests = leaf_visits * leaf_size
+    fetches = -(-(node_visits + leaf_visits) // group)
+    nbytes = (lanes * (in_planes + out_planes) * 4
+              + min(table_rows, fetches) * ROW * 4)
+    flops = child_tests * SLAB_OPS + tri_tests * TRI_OPS
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    flops_ms = flops / H100_F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "flops_ms": flops_ms, "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
 def packet_traverse_reference(nodes, leaves, origin: V3, direction: V3,
                               tmax=None, *, leaf_size: int = 8,
-                              any_hit: bool = False,
-                              stack_depth: int = 64) -> PacketHit:
+                              any_hit: bool = False, stack_depth: int = 64,
+                              counts: dict | None = None) -> PacketHit:
     """Plain PyTorch version of the v1 kernel (ops/traverse3's group walk at
     1024 rays a group, v1 rules)."""
     from fspt_tpu_torch.ops.traverse3 import group_walk_reference
     return group_walk_reference(
         nodes, leaves, origin, direction, tmax, group=PACKET, tree_width=8,
         leaf_size=leaf_size, any_hit=any_hit, stack_depth=stack_depth,
-        v1=True)
+        v1=True, counts=counts)
 
 
 def packet_traverse(nodes, leaves, origin: V3, direction: V3, tmax=None, *,

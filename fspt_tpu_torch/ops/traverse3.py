@@ -59,7 +59,8 @@ from fspt_tpu_torch.core.vec import V3
 from fspt_tpu_torch.ops import _build
 from fspt_tpu_torch.ops.traverse import (SENTINEL, PacketHit,
                                          check_kernel_inputs, check_tables,
-                                         error_flag, ray_planes, safe_inv)
+                                         error_flag, ray_planes, safe_inv,
+                                         tally_visits)
 
 GROUP = 128            # rays per v3 walk
 STACK_CAP = 4096       # shared-memory stack entries the CUDA kernel takes
@@ -84,10 +85,14 @@ def _halving_sum(x):
 def group_walk_reference(nodes, leaves, origin: V3, direction: V3, tmax=None,
                          *, group: int, tree_width: int, leaf_size: int,
                          any_hit: bool, stack_depth: int,
-                         lane_counts: bool = False,
-                         v1: bool = False) -> PacketHit:
+                         lane_counts: bool = False, v1: bool = False,
+                         counts: dict | None = None) -> PacketHit:
     """Plain PyTorch group walk, vectorised over groups: every live group
-    makes one visit per loop iteration, in the kernel's order."""
+    makes one visit per loop iteration, in the kernel's order.  `counts`,
+    when given, has the launch's node and leaf visits added to its "node"
+    and "leaf" entries, and the valid children and real triangles those
+    visits tested to "children" and "triangles", each group visit counted
+    once per lane of the group (every lane does its arithmetic)."""
     name = "packet_traverse" if v1 else "packet_traverse3"
     check_tables(name, nodes, leaves, leaf_size, stack_depth)
     if tree_width not in WIDTHS:
@@ -142,6 +147,8 @@ def group_walk_reference(nodes, leaves, origin: V3, direction: V3, tmax=None,
         r = live[at_node]
         if r.numel():
             row = nodes[c[at_node]]
+            if counts is not None:
+                tally_visits(counts, "node", row, group, tw)
             lane = lambda k: row[:, None, k * tw:(k + 1) * tw]
             o = lambda a: a[r][:, :, None]
             oxr, oyr, ozr = o(ox), o(oy), o(oz)
@@ -195,6 +202,8 @@ def group_walk_reference(nodes, leaves, origin: V3, direction: V3, tmax=None,
         if r.numel():
             leaf = -c[~at_node] - 1
             row = leaves[leaf]
+            if counts is not None:
+                tally_visits(counts, "leaf", row, group, leaf_size)
             oxr, oyr, ozr = ox[r], oy[r], oz[r]
             dxr, dyr, dzr = dx[r], dy[r], dz[r]
             bt_r, bs_r, bu_r, bv_r = bt[r], bs[r], bu[r], bv[r]
@@ -247,13 +256,14 @@ def packet_traverse3_reference(nodes, leaves, origin: V3, direction: V3,
                                tmax=None, *, leaf_size: int = 8,
                                any_hit: bool = False, stack_depth: int = 64,
                                tree_width: int = 8, table_hbm: bool = False,
-                               lane_counts: bool = False) -> PacketHit:
+                               lane_counts: bool = False,
+                               counts: dict | None = None) -> PacketHit:
     """Plain PyTorch version of the v3 kernel (128-ray groups)."""
     _check_v3(table_hbm, lane_counts)
     return group_walk_reference(
         nodes, leaves, origin, direction, tmax, group=GROUP,
         tree_width=tree_width, leaf_size=leaf_size, any_hit=any_hit,
-        stack_depth=stack_depth, lane_counts=lane_counts)
+        stack_depth=stack_depth, lane_counts=lane_counts, counts=counts)
 
 
 def _check_v3(table_hbm, lane_counts):

@@ -9,8 +9,10 @@ visits)` — the nearest hit (t = tmax and slot = -1 on a miss), or, with
 
 How it walks.  The TPU kernel advanced 8x128-ray lockstep walks with a
 phase split between node bursts and leaf-drain bursts; on Hopper each ray
-walks alone, one thread per ray with its own stack, as the GLSL original
-did (tracer.fs:366-404).  A pop visits one entry: a node slab-tests its
+walks alone with its own stack, as the GLSL original did
+(tracer.fs:366-404); the CUDA kernel gives a ray 8 lanes of a warp, one per
+child or triangle, and the plain version a row of a tensor.  A pop visits
+one entry: a node slab-tests its
 children and pushes the wanted ones (nodes and leaves alike) far to near,
 so the nearest is popped next; a leaf runs Möller–Trumbore over its
 triangles.  Children go near to far by the node's sort axis (lane 7*width) and
@@ -55,7 +57,8 @@ from fspt_tpu_torch.ops import _build
 from fspt_tpu_torch.ops.traverse import (MAX_T, PacketHit,  # noqa: F401
                                          check_kernel_inputs,
                                          check_stack_overflow, check_tables,
-                                         error_flag, ray_planes, safe_inv)
+                                         error_flag, ray_planes, safe_inv,
+                                         tally_visits)
 
 WIDTHS = (8, 16)       # tree widths of ops/packing.py the kernel takes
 STACK_CAP = 256        # compile-time stack capacity of the CUDA kernel
@@ -71,9 +74,14 @@ def _check_args(nodes, leaves, leaf_size, stack_depth, tree_width):
 def packet_traverse4_reference(nodes, leaves, origin: V3, direction: V3,
                                tmax=None, *, leaf_size: int = 8,
                                any_hit: bool = False, stack_depth: int = 64,
-                               tree_width: int = 8) -> PacketHit:
+                               tree_width: int = 8,
+                               counts: dict | None = None) -> PacketHit:
     """Plain PyTorch version of the kernel: every ray pops one stack entry
-    per loop iteration, in the kernel's order, until all stacks are empty."""
+    per loop iteration, in the kernel's order, until all stacks are empty.
+    `counts`, when given, has the launch's node and leaf visits added to
+    its "node" and "leaf" entries (their sum is `visits.sum()`), and the
+    valid children and real triangles those visits tested to "children"
+    and "triangles" (ops/traverse.py `tally_visits`)."""
     _check_args(nodes, leaves, leaf_size, stack_depth, tree_width)
     dev = nodes.device
     n = origin.x.shape[0]
@@ -104,6 +112,8 @@ def packet_traverse4_reference(nodes, leaves, origin: V3, direction: V3,
         r = live[is_node]
         if r.numel():
             row = nodes[link[is_node].long()]
+            if counts is not None:
+                tally_visits(counts, "node", row, 1, tw)
             oxr, oyr, ozr = ox[r, None], oy[r, None], oz[r, None]
             ixr, iyr, izr = ix[r, None], iy[r, None], iz[r, None]
             lane = lambda k: row[:, k * tw:(k + 1) * tw]
@@ -145,6 +155,8 @@ def packet_traverse4_reference(nodes, leaves, origin: V3, direction: V3,
         if r.numel():
             leaf = -link[~is_node] - 1
             row = leaves[leaf.long()]
+            if counts is not None:
+                tally_visits(counts, "leaf", row, 1, leaf_size)
             oxr, oyr, ozr = ox[r], oy[r], oz[r]
             dxr, dyr, dzr = dx[r], dy[r], dz[r]
             bt_r, bs_r, bu_r, bv_r = bt[r], bs[r], bu[r], bv[r]

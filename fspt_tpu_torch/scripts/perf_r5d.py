@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from fspt_tpu_torch.ops import _build
+from fspt_tpu_torch.ops.traverse import real_triangles
 
 WALKS, LANES = 8, 128
 K = 4096          # substeps per program
@@ -77,8 +78,13 @@ def _row_hash(cur, i, rows):
     return torch.remainder(x, rows)
 
 
-def micro_reference(table, rays, variant: str, k: int = K):
-    """Plain PyTorch version of the micro kernel: (1, 8, 128) float32."""
+def micro_reference(table, rays, variant: str, k: int = K,
+                    counts: dict | None = None):
+    """Plain PyTorch version of the micro kernel: (1, 8, 128) float32.
+    `counts`, when given, has the real triangles (ops/traverse.py
+    `real_triangles`) of the rows the substeps ran Möller–Trumbore over
+    added to its "triangles" entry (a tensor), once per lane.  (The box
+    tests take all 8 children of every row: the micro has no link test.)"""
     _check(table, rays, variant, k)
     dev = table.device
     rows = table.shape[0]
@@ -94,6 +100,9 @@ def micro_reference(table, rays, variant: str, k: int = K):
     stack = torch.zeros((WALKS, DEPTH), dtype=torch.int64, device=dev)
 
     def mt(rd, bt):
+        if counts is not None:
+            counts["triangles"] = (counts.get("triangles", 0)
+                                   + real_triangles(rd, 8).sum() * LANES)
         for j in range(8):
             c = [rd[:, 9 * j + q, None] for q in range(9)]
             px = dy * c[8] - dz * c[7]

@@ -68,7 +68,9 @@ from fspt_tpu_torch.core.vec import V3
 from fspt_tpu_torch.ops import _build
 from fspt_tpu_torch.ops.traverse import (SENTINEL, PacketHit,
                                          check_kernel_inputs, check_tables,
-                                         error_flag, ray_planes, safe_inv)
+                                         error_flag, ray_planes,
+                                         real_triangles, safe_inv,
+                                         valid_children)
 from fspt_tpu_torch.ops.traverse3 import _halving_sum
 
 WALKS = 8
@@ -150,10 +152,15 @@ def packet_traverse5_reference(nodes, leaves, origin: V3, direction: V3,
                                unroll: int = 4, qcap: int = 128,
                                drain_unroll: int = 4, npop: int = 2,
                                lpop: int = 2, walks: int = WALKS,
-                               tree_width: int = 8) -> PacketHit:
+                               tree_width: int = 8,
+                               counts: dict | None = None) -> PacketHit:
     """Plain PyTorch version of the v5 kernel: every live program runs one
     burst per loop iteration, its walks in lockstep, in the kernel's
-    order."""
+    order.  `counts`, when given, has the launch's node and leaf visits
+    added to its "node" and "leaf" entries, and the valid children and
+    real triangles those visits tested to "children" and "triangles"
+    (tensors on the tables' device), each walk's visit counted once per
+    lane of the walk."""
     drain_unroll = _check_args(nodes, leaves, leaf_size, stack_depth, unroll,
                                qcap, drain_unroll, npop, lpop, walks,
                                tree_width)
@@ -200,6 +207,11 @@ def packet_traverse5_reference(nodes, leaves, origin: V3, direction: V3,
     def gather(a, idx):
         return torch.gather(a, 2, idx[..., None])[..., 0]
 
+    def tally(**units):
+        if counts is not None:
+            for key, x in units.items():
+                counts[key] = counts.get(key, 0) + x.sum() * LANES
+
     def drain_select(s, k):
         has, ords = [], []
         for u in range(k):
@@ -211,6 +223,7 @@ def packet_traverse5_reference(nodes, leaves, origin: V3, direction: V3,
     def drain_mt(s, has, ords):
         for h, o in zip(has, ords):
             row = table[torch.clamp(n_nodes + o, min=0) * h]
+            tally(triangles=real_triangles(row, leaf_size) * h)
             slot_base = (o * leaf_size).to(i32)[..., None]
             mask = h[..., None]
             for j in range(leaf_size):
@@ -224,6 +237,7 @@ def packet_traverse5_reference(nodes, leaves, origin: V3, direction: V3,
 
     def unit_wants(s, unit, is_node):
         row = table[torch.clamp(unit, min=0) * is_node]       # (B, W, 128)
+        tally(children=valid_children(row, tw) * is_node)
         lane = lambda k: row[:, :, None, k * tw:(k + 1) * tw]
         o = lambda a: a[..., None]
         t1x = (lane(0) - o(s.ox)) * o(s.ix)
@@ -301,7 +315,9 @@ def packet_traverse5_reference(nodes, leaves, origin: V3, direction: V3,
         s.cur = ncur
         drain_mt(s, has, ords)
         s.qlen = q
-        s.vis = s.vis + sum(m.to(torch.int64) for m in is_node) + taken
+        node_units = sum(m.to(torch.int64) for m in is_node)
+        s.vis = s.vis + node_units + taken
+        tally(node=node_units, leaf=taken)
         end_done(s)
 
     def drain_substep(s):
@@ -312,6 +328,7 @@ def packet_traverse5_reference(nodes, leaves, origin: V3, direction: V3,
         s.qlen = s.qlen - taken
         end_done(s)
         s.vis = s.vis + taken
+        tally(leaf=taken)
 
     live = torch.arange(npg, device=dev)
     while live.numel():

@@ -261,3 +261,129 @@ def test_cuda_kernel_width16_bit_exact_vs_plain(setup, setup16, cuda_device):
     ref = packet_traverse4_reference(*args, **kw)
     for f in ours._fields:
         assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+
+
+# ---- the edges a thread-to-ray mapping can break -------------------------
+# Lane counts around the kernel's block (8 rays) and warp (4 rays) sizes, a
+# launch with no live lane, any-hit, width 16, and a stack one entry short.
+# On the CPU the plain version is held to what defines it (a ray's result
+# does not depend on the launch it is in); on a card the kernel is held to
+# the plain version bit for bit.
+
+EDGES = ["n0", "n1", "n127", "n129", "n1000", "dead", "any_hit", "width16"]
+
+
+def _edge_case(setup, setup16, case, device="cpu"):
+    """(args, kwargs, n) of an edge launch on `device`."""
+    pk, o, d, tm = setup
+    n = {"n0": 0, "n1": 1, "n127": 127, "n129": 129, "n1000": 1000}.get(
+        case, 129)
+    width = 16 if case == "width16" else 8
+    if width == 16:
+        pk = setup16
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    tmax = np.zeros(n, np.float32) if case == "dead" else tm[:n]
+    args = (t(pk.nodes), t(pk.leaves), V3(*(t(x[:n]) for x in o)),
+            V3(*(t(x[:n]) for x in d)), t(tmax))
+    kw = dict(leaf_size=8, stack_depth=width * (pk.depth + 2) + 2 * width,
+              any_hit=case == "any_hit", tree_width=width)
+    return args, kw, n
+
+
+def _needed_depth(args, kw):
+    """The smallest stack_depth at which the plain version does not raise."""
+    lo, hi = 1, kw["stack_depth"]
+    while lo < hi:
+        mid = (lo + hi) // 2
+        try:
+            packet_traverse4_reference(*args, **{**kw, "stack_depth": mid})
+            hi = mid
+        except RuntimeError:
+            lo = mid + 1
+    return lo
+
+
+@pytest.fixture(scope="module")
+def full_run(setup):
+    return _port(setup[0], *setup[1:])
+
+
+@pytest.mark.parametrize("case", EDGES)
+def test_edge_launches_plain(setup, setup16, full_run, case):
+    args, kw, n = _edge_case(setup, setup16, case)
+    hit = packet_traverse4(*args, **kw)
+    assert all(x.shape == (n,) for x in hit)
+    assert hit.slot.dtype == torch.int32 and hit.t.dtype == torch.float32
+    if case == "dead":
+        assert (hit.slot == -1).all() and (hit.t == 0).all()
+        assert (hit.visits >= 1).all()
+    elif case == "any_hit":
+        assert torch.equal(hit.slot >= 0, full_run.slot[:n] >= 0)
+        assert (hit.visits <= full_run.visits[:n]).all()
+    elif case == "width16":
+        assert torch.equal(hit.slot, full_run.slot[:n])
+        np.testing.assert_allclose(hit.t.numpy(), full_run.t[:n].numpy(),
+                                   **TOL)
+    else:
+        # a ray's walk does not depend on the launch it is in
+        for f in hit._fields:
+            assert torch.equal(getattr(hit, f), getattr(full_run, f)[:n]), f
+
+
+def test_stack_one_entry_short_raises_plain(setup, setup16):
+    args, kw, _ = _edge_case(setup, setup16, "n1000")
+    need = _needed_depth(args, kw)
+    assert 2 < need < kw["stack_depth"]
+    packet_traverse4(*args, **{**kw, "stack_depth": need})
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        packet_traverse4(*args, **{**kw, "stack_depth": need - 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGES)
+def test_cuda_kernel_edge_launches_bit_exact_vs_plain(setup, setup16,
+                                                      cuda_device, case):
+    from fspt_tpu_torch.ops.traverse4 import check_stack_overflow
+    args, kw, n = _edge_case(setup, setup16, case, cuda_device)
+    ours = packet_traverse4(*args, **kw)
+    torch.cuda.synchronize()
+    check_stack_overflow(cuda_device)
+    ref = packet_traverse4_reference(*args, **kw)
+    assert all(x.shape == (n,) for x in ours)
+    for f in ours._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_stack_one_entry_short_raises(setup, setup16,
+                                                  cuda_device):
+    from fspt_tpu_torch.ops.traverse4 import check_stack_overflow
+    args, kw, _ = _edge_case(setup, setup16, "n1000", cuda_device)
+    need = _needed_depth(args, kw)
+    ours = packet_traverse4(*args, **{**kw, "stack_depth": need})
+    torch.cuda.synchronize()
+    check_stack_overflow(cuda_device)           # exactly enough: no raise
+    ref = packet_traverse4_reference(*args, **{**kw, "stack_depth": need})
+    for f in ours._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+    packet_traverse4(*args, **{**kw, "stack_depth": need - 1})
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="overflowed"):
+        check_stack_overflow(cuda_device)
+
+
+@pytest.mark.parametrize("case", ["n1000", "dead"])
+def test_edge_launches_match_pallas_kernel(setup, setup16, case):
+    """A launch that the JAX wrapper pads to whole walks (n = 1000) and one
+    with no live lane, against the JAX kernel in interpret mode."""
+    pk, o, d, tm = setup
+    n = 1000
+    tmax = np.zeros(n, np.float32) if case == "dead" else tm[:n]
+    ours = _port(pk, o[:, :n], d[:, :n], tmax)
+    ref = _jax(pk, o[:, :n], d[:, :n], tmax)
+    assert all(np.asarray(x).shape == (n,) for x in ref)
+    _assert_hits(ours, ref)
+    if case == "dead":
+        assert (ours.slot == -1).all() and (ours.t == 0).all()
+    else:
+        assert (ours.slot >= 0).sum() > 5

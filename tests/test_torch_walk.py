@@ -451,3 +451,257 @@ def test_cuda_kernel_bit_exact_vs_plain(setup, cuda_device, case):
     ref = _port(setup, impl, device=cuda_device, reference=True, **kw)
     for f in ours._fields:
         assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+
+
+# ---- the edges a thread-to-ray mapping can break -------------------------
+# Lane counts around a group (128) and a packet (1024), a launch with no
+# live lane, any-hit, width 16, and a stack one entry short.  On the CPU the
+# plain version is held to the per-ray walk of ops/traverse4 (a group walk
+# finds the same nearest hits; its `visits` are one count per group); on a
+# card the kernels are held to the plain version bit for bit.
+
+EDGES = ["n0", "n1", "n127", "n129", "n1000", "dead", "any_hit", "width16"]
+EDGE_IMPLS = [(impl, case) for impl in ("walk", "packet") for case in EDGES
+              if not (impl == "packet" and case == "width16")]
+
+
+def _edge_case(setup, impl, case, device="cpu"):
+    """(function, plain version, args, kwargs, n) of an edge launch."""
+    pks, o, d, tm = setup
+    n = {"n0": 0, "n1": 1, "n127": 127, "n129": 129, "n1000": 1000}.get(
+        case, 129)
+    width = 16 if case == "width16" else 8
+    pk = pks[width]
+    t = lambda a: _t(a).to(device)
+    tmax = np.zeros(n, np.float32) if case == "dead" else tm[:n]
+    args = (t(pk.nodes), t(pk.leaves), V3(*(t(x[:n]) for x in o)),
+            V3(*(t(x[:n]) for x in d)), t(tmax))
+    kw = dict(leaf_size=8, stack_depth=_stack(pk, width),
+              any_hit=case == "any_hit")
+    if impl == "walk":
+        kw["tree_width"] = width
+        return packet_traverse3, packet_traverse3_reference, args, kw, n
+    return packet_traverse, packet_traverse_reference, args, kw, n
+
+
+def _needed_depth(ref, args, kw):
+    """The smallest stack_depth at which the plain version does not raise."""
+    lo, hi = 1, kw["stack_depth"]
+    while lo < hi:
+        mid = (lo + hi) // 2
+        try:
+            ref(*args, **{**kw, "stack_depth": mid})
+            hi = mid
+        except RuntimeError:
+            lo = mid + 1
+    return lo
+
+
+@pytest.fixture(scope="module")
+def per_ray(setup):
+    """The nearest hits of every ray by the per-ray walk, 8-wide."""
+    from fspt_tpu_torch.ops.traverse4 import packet_traverse4_reference
+    pks, o, d, tm = setup
+    return packet_traverse4_reference(
+        _t(pks[8].nodes), _t(pks[8].leaves), V3(*map(_t, o)),
+        V3(*map(_t, d)), _t(tm), leaf_size=8, stack_depth=256)
+
+
+@pytest.mark.parametrize("impl,case", EDGE_IMPLS)
+def test_edge_launches_plain(setup, per_ray, impl, case):
+    fn, _, args, kw, n = _edge_case(setup, impl, case)
+    hit = fn(*args, **kw)
+    assert all(x.shape == (n,) for x in hit)
+    assert hit.slot.dtype == torch.int32 and hit.t.dtype == torch.float32
+    if n == 0:
+        return
+    # one visit count per group, shared by its rays
+    group = GROUPS[impl]
+    first = hit.visits[(torch.arange(n) // group) * group]
+    assert torch.equal(hit.visits, first) and hit.visits.min() >= 1
+    if case == "dead":
+        assert (hit.slot == -1).all() and (hit.t == 0).all()
+    elif case == "any_hit":
+        assert torch.equal(hit.slot >= 0, per_ray.slot[:n] >= 0)
+    else:
+        assert torch.equal(hit.slot, per_ray.slot[:n])
+        np.testing.assert_allclose(hit.t.numpy(), per_ray.t[:n].numpy(),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("impl", ["walk", "packet"])
+def test_stack_one_entry_short_raises_plain(setup, impl):
+    fn, ref, args, kw, _ = _edge_case(setup, impl, "n1000")
+    need = _needed_depth(ref, args, kw)
+    assert 2 < need < kw["stack_depth"]
+    fn(*args, **{**kw, "stack_depth": need})
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        fn(*args, **{**kw, "stack_depth": need - 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,case", EDGE_IMPLS)
+def test_cuda_kernel_edge_launches_bit_exact_vs_plain(setup, cuda_device,
+                                                      impl, case):
+    from fspt_tpu_torch.ops.traverse import check_stack_overflow
+    fn, ref_fn, args, kw, n = _edge_case(setup, impl, case, cuda_device)
+    ours = fn(*args, **kw)
+    torch.cuda.synchronize()
+    check_stack_overflow(cuda_device)
+    ref = ref_fn(*args, **kw)
+    assert all(x.shape == (n,) for x in ours)
+    for f in ours._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+    if impl == "walk" and n:
+        lk = fn(*args, **kw, lane_counts=True)
+        lp = ref_fn(*args, **kw, lane_counts=True)
+        assert torch.equal(lk.visits, lp.visits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["walk", "packet"])
+def test_cuda_kernel_stack_one_entry_short_raises(setup, cuda_device, impl):
+    from fspt_tpu_torch.ops.traverse import check_stack_overflow
+    fn, ref_fn, args, kw, _ = _edge_case(setup, impl, "n1000", cuda_device)
+    need = _needed_depth(ref_fn, args, kw)
+    ours = fn(*args, **{**kw, "stack_depth": need})
+    torch.cuda.synchronize()
+    check_stack_overflow(cuda_device)           # exactly enough: no raise
+    ref = ref_fn(*args, **{**kw, "stack_depth": need})
+    for f in ours._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+    fn(*args, **{**kw, "stack_depth": need - 1})
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="overflowed"):
+        check_stack_overflow(cuda_device)
+
+
+# ---- the edge launches against the JAX package ---------------------------
+# A launch whose last group is partly pad rays (n = 1000: not a multiple of
+# 128 or 1024) and one with no live lane, through the JAX kernels in
+# interpret mode: the pad rays enter the sign sums and the votes, so hits
+# and per-group visits must agree there too.
+
+def _steady_padded(d, n, group):
+    """_steady_groups for n rays padded to whole groups with the pad rays'
+    direction (0, 1, 0)."""
+    pad = (-n) % group
+    padded = np.concatenate(
+        [d[:, :n], np.tile(np.array([[0.0], [1.0], [0.0]], np.float32),
+                           (1, pad))], axis=1)
+    return _steady_groups(padded, group)[:n]
+
+
+@pytest.mark.parametrize("case", ["n1000", "dead"])
+@pytest.mark.parametrize("impl", ["walk", "packet"])
+def test_edge_launches_match_pallas_kernel(setup, impl, case):
+    import jax.numpy as jnp
+    from fspt_tpu.core.vec import V3 as JV3
+    from fspt_tpu.ops.traverse import packet_traverse as j1
+    from fspt_tpu.ops.traverse3 import packet_traverse3 as j3
+    fn, _, args, kw, n = _edge_case(setup, impl, case)
+    ours = fn(*args, **kw)
+    nodes, leaves, o, d, tmax = args
+    j = lambda x: jnp.asarray(x.numpy())
+    ref = (j3 if impl == "walk" else j1)(
+        j(nodes), j(leaves), JV3(*map(j, o)), JV3(*map(j, d)), j(tmax),
+        interpret=True, **kw)
+    ref = [np.asarray(x) for x in ref]
+    assert all(x.shape == (n,) for x in ref)
+    _assert_hits(ours, ref)
+    steady = _steady_padded(setup[2], n, GROUPS[impl])
+    np.testing.assert_array_equal(ours.visits.numpy()[steady],
+                                  ref[4][steady])
+    if case == "dead":
+        assert (ours.slot == -1).all() and (ref[4] >= 1).all()
+    else:
+        assert (ours.slot >= 0).sum() > 5
+
+
+# ---- the leaf tests' reciprocal over the whole range of determinants -----
+# csrc/walk.cu takes 1.0f / det apart (the hardware's approximation and one
+# Newton step where the exponent allows, a true division elsewhere) so that
+# two triangles' reciprocals run side by side; the result must be 1.0f / det
+# to the bit for every determinant.  This scene drives chosen determinants
+# through the leaf path: 64 triangles in the z = 0 plane, triangle j at
+# x = 4j with edges (a_j, 0, 0) and (0, b_j, 0), and rays along +z with
+# direction (0, 0, s), so that ray and triangle give the determinant
+# -a_j * b_j * s exactly.  Every ray aims at one triangle from z = -s, which
+# it hits at t = 1, u = v = 1/4 wherever |det| >= 1e-6, so t, u and v carry
+# the reciprocal out.  s sweeps 2^-22 .. 2^126 (|det| from below the 1e-6
+# cut, where the divisor is the 1.0f stand-in, to 2^127.99: past the upper
+# edge of the Newton window at 2^126); a_j sweeps mantissas from 1 to
+# 2 - 2^-23, b_j is +-2, and every fourth triangle is 2^-40 wide, so that
+# its pair partner meets a stand-in divisor beside a huge one.
+
+RCP_MANTISSAS = (1.0, 1.0 + 2.0 ** -23, 1.25, 1.5, 1.75, 2.0 - 2.0 ** -23,
+                 1.3333334, 1.9)
+RCP_EXPONENTS = range(-22, 127)
+
+
+def _reciprocal_scene(device="cpu"):
+    """(nodes, leaves, origin, direction, target slot, s exponent) of the
+    sweep: one root over eight 8-triangle leaves."""
+    tri = np.arange(64)
+    a = np.array([RCP_MANTISSAS[j % 8] for j in tri], np.float32)
+    a[3::4] *= np.float32(2.0 ** -40)
+    b = np.where(tri // 8 % 2 == 0, 2.0, -2.0).astype(np.float32)
+    nodes = np.zeros((1, 128), np.float32)
+    for lane, v in ((0, -1e3), (8, -4.0), (16, -1.0), (24, 1e3), (32, 4.0),
+                    (40, 1.0)):
+        nodes[0, lane:lane + 8] = v
+    nodes[0, 48:56] = -np.arange(8) - 1              # links: leaves 0..7
+    nodes[0, 56] = 2.0                               # sort axis z
+    rows = np.zeros((64, 9), np.float32)             # v0, e1, e2
+    rows[:, 0] = 4.0 * tri
+    rows[:, 3] = a
+    rows[:, 7] = b
+    leaves = np.zeros((8, 128), np.float32)
+    leaves[:, :72] = rows.reshape(8, 72)
+    k = np.repeat(np.array(RCP_EXPONENTS), 64)
+    j = np.tile(tri, len(RCP_EXPONENTS))
+    s = np.exp2(k).astype(np.float32)
+    zero = np.zeros_like(s)
+    o = (rows[j, 0] + a[j] / 4, b[j] / 4, -s)
+    t = lambda x: _t(np.asarray(x, np.float32)).to(device)
+    return (t(nodes), t(leaves), V3(*map(t, o)), V3(t(zero), t(zero), t(s)),
+            j, k)
+
+
+@pytest.mark.parametrize("impl", ["walk", "packet"])
+def test_reciprocal_sweep_plain(impl):
+    nodes, leaves, o, d, j, k = _reciprocal_scene()
+    hit = PORT[impl](nodes, leaves, o, d, leaf_size=8, stack_depth=16)
+    a = leaves.numpy()[:, :72].reshape(64, 9)[j, 3].astype(np.float64)
+    det = a * 2.0 * np.exp2(k.astype(np.float64))
+    # every aimed-at triangle of more than 2^-40 is hit where the cut allows
+    wide = (j % 4 != 3) & (det >= 1.1e-6)
+    assert wide.sum() > 6000
+    np.testing.assert_array_equal(hit.slot.numpy()[wide], j[wide])
+    np.testing.assert_allclose(hit.t.numpy()[wide], 1.0, rtol=1e-6)
+    # (the origin's x = 4j + a/4 rounds at up to 2^-16 beside x = 252)
+    np.testing.assert_allclose(hit.u.numpy()[wide], 0.25, rtol=1e-4)
+    np.testing.assert_allclose(hit.v.numpy()[wide], 0.25, rtol=1e-6)
+    assert (hit.slot.numpy()[det < 0.9e-6] == -1).all()
+    # determinants on both sides of the Newton window's upper edge
+    assert (det[wide] >= 2.0 ** 126).sum() > 80
+    assert np.isfinite(det).all() and det.max() < 2.0 ** 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("impl", ["walk", "packet"])
+def test_cuda_kernel_reciprocal_sweep_bit_exact_vs_plain(cuda_device, impl,
+                                                         any_hit):
+    from fspt_tpu_torch.ops.traverse import check_stack_overflow
+    nodes, leaves, o, d, j, _ = _reciprocal_scene(cuda_device)
+    ref_fn = (packet_traverse3_reference if impl == "walk"
+              else packet_traverse_reference)
+    kw = dict(leaf_size=8, stack_depth=16, any_hit=any_hit)
+    ours = PORT[impl](nodes, leaves, o, d, **kw)
+    torch.cuda.synchronize()
+    check_stack_overflow(cuda_device)
+    ref = ref_fn(nodes, leaves, o, d, **kw)
+    assert (ref.slot >= 0).sum() > 6000
+    for f in ours._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f

@@ -7,11 +7,12 @@ Run from the root of a checkout, with no arguments:
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: name, `nvidia-smi` name and power limit, torch/CUDA versions;
-  2. build: nvcc builds the eight sources of csrc/ (traverse4, walk, walk5,
-     dense_mt, micro, the first designs traverse4_v0 and walk_v0 that only
-     the [versus] and [shape] lines launch, and walk_divide, a measurement
-     build of walk that only scripts/perf_walk_launches.py launches)
-     concurrently into fspt_tpu_torch/_build/; nvcc seconds and each kernel's registers and
+  2. build: nvcc builds the ten sources of csrc/ (traverse4, walk, walk1,
+     walk5, dense_mt, micro, the first designs traverse4_v0, walk_v0 and
+     micro_v0 that only the [versus] and [shape] lines launch, and
+     walk_divide, a measurement build of walk that only
+     scripts/perf_walk_launches.py launches) concurrently into
+     fspt_tpu_torch/_build/; nvcc seconds and each kernel's registers and
      spills;
   3. scene: the bench scene (82k-triangle bunny stand-in) onto the card; how
      full its 8-wide nodes and 8-triangle leaves are;
@@ -31,16 +32,24 @@ Phases (one line each; any failure raises and exits non-zero):
      8-wide tables' slots;
   6. kernel vs plain, the group walks: walk3 ("walk") on the primary rays
      and on the port's own sorted bounce-0 launch of the CLI's --no-compact
-     configuration (2 x 262,144 lanes), walk1 ("packet") on the primary
-     rays; nearest, any-hit and clipped runs bit-equal, lane counts
+     configuration (2 x 262,144 lanes), walk1 ("packet", csrc/walk1.cu: a
+     packet a thread block cluster) on the primary rays and on the bounce-0
+     launch of a "packet" step; nearest, any-hit and clipped runs
+     bit-equal, lane counts
      bit-equal on the primary rays; times of both; for walk3 a [shape]
      line per launch (per-group visits with p50/p99/max, node/leaf split,
      the bound, where the launch order's last block ends in visits against
      an even share over 5 blocks an SM, and the kernel's time with the
      blocks an SM holds cut to 4 and to 1 by padding shared memory: a time
      that hardly moves means the per-visit latency chain bounds it, one
-     that scales means instruction throughput) and a [versus] line; a
-     [versus] line for walk1;
+     that scales means instruction throughput) and a [versus] line; for
+     walk1 a [shape] line per launch (per-packet visits with p50/p99/max,
+     where the launch order's last packet ends against an even share over
+     one block an SM, the cycles a visit of the 1,024-thread block that
+     walk1 was and of the cluster), [versus]
+     lines against that block (csrc/walk.cu `fspt_walk1_block`) and against
+     the first design, and the [cluster_barrier] lines of
+     scripts/cluster_barrier_bench.cu (the cycles a vote costs by route);
   7. golden: 32x32 renders on the card against tests/goldens/bunny_class.npy
      under "split" and under the default "walk", and heatmap.npy
      (tests/test_goldens.py's 5% bound);
@@ -66,8 +75,14 @@ Phases (one line each; any failure raises and exits non-zero):
      stand-in tiles and on 64 tiles of captured rays, T = 64 and 128; then
      the two-level study perf_r5_treelet.main(), its launch count read;
  15. micro: csrc/micro.cu against its plain version at k=64 for all eight
-     variants, bit-equal; then perf_r5d.main() at K=4096 (ns/substep), its
-     launch count read.
+     variants, bit-equal, `leaf` and `leaf2` also at k=512, and `full` and
+     `leaf4` at K=4096, the shape perf_r5d.main() launches, once each (the
+     plain version at K=4096 costs ~45 s for `full` and ~120 s for `leaf4`,
+     so the other variants do not take it: at K=4096 they are held bit for
+     bit to the first design, csrc/micro_v0.cu, in the [versus] lines, which
+     time the two in turns); then perf_r5d.main() at K=4096 (ns/substep),
+     its launch count read (a count of calls: a call of the leaf family is
+     three kernel launches).
 Then one JSON line with the kernels' numbers (each row with its bound from
 ops/traverse.py `traversal_bound`, computed from this run's visit counts and
 the valid children and real triangles those visits tested, and its launches
@@ -277,6 +292,33 @@ def shape_walk3(label, hit, counts, bound, ms, args, kw, group=128):
         share_of_bound=f"{bound['bound_ms'] / ms:.4f}", **times)
 
 
+def shape_walk1(label, hit, counts, bound, ms, block_ms, mhz):
+    """The per-packet visits of a walk1 launch, its bound, how far the launch
+    order's longest packets stretch it, and the cycles a visit costs the
+    1,024-thread block that walk1 was (one block an SM: its time over the
+    visits of the SM that ends last) and the cluster (its time over the
+    longest packet's visits: every packet is resident at once)."""
+    import torch
+    from fspt_tpu_torch.ops.traverse import PACKET
+    g = hit.visits[::PACKET]
+    if counts["node"] + counts["leaf"] != int(g.sum()) * PACKET:
+        raise AssertionError(f"{label}: node + leaf visits differ from "
+                             "the kernel's visits")
+    q = torch.quantile(g.float(), torch.tensor([0.5, 0.99], device=g.device))
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    last, even = inorder_makespan(g.cpu(), sms)
+    say("shape", launch=label, lanes=hit.visits.numel(), packets=g.numel(),
+        packet_visits=int(g.sum()), mean=f"{g.float().mean().item():.2f}",
+        p50=f"{q[0].item():.0f}", p99=f"{q[1].item():.0f}", max=int(g.max()),
+        last_block_ends_at_visits=last, even_share_visits=f"{even:.0f}",
+        node_packet_visits=counts["node"] // PACKET,
+        leaf_packet_visits=counts["leaf"] // PACKET, **tested(counts),
+        block_cycles_per_visit=f"{block_ms * 1e-3 * mhz * 1e6 / last:.0f}",
+        cluster_cycles_per_visit=f"{ms * 1e-3 * mhz * 1e6 / int(g.max()):.0f}",
+        sm_mhz=mhz, **bound_fields(bound),
+        share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
+
+
 def ptxas_summary(log):
     """One line per kernel entry of a `ptxas -v` log: template arguments,
     registers, spill stores/loads and stack frame."""
@@ -290,6 +332,9 @@ def ptxas_summary(log):
             w4 = re.search(r"walk4_kernelILi(\d+)ELb(\d)E", name)
             w5 = re.search(r"walk5_kernelILi(\d+)ELb(\d)E", name)
             one = re.search(r"(dense_mt|micro)_kernelILi(\d+)E", name)
+            w1 = re.search(r"walk1_kernelILb(\d)E", name)
+            part = re.search(r"\d+(chain|leaf|fetch|leaf_begin|leaf_end)"
+                             r"_kernel(?:ILi(\d+)E)?", name)
             if walk:
                 g, tw, a, lc, v1 = walk.groups()
                 entry = {"kernel": f"walk<group={g},width={tw},any={a},"
@@ -300,9 +345,14 @@ def ptxas_summary(log):
             elif w5:
                 entry = {"kernel": f"walk5<width={w5.group(1)},"
                                    f"any={w5.group(2)}>"}
+            elif w1:
+                entry = {"kernel": f"walk1<any={w1.group(1)}>"}
             elif one:
                 arg = "T" if one.group(1) == "dense_mt" else "variant"
                 entry = {"kernel": f"{one.group(1)}<{arg}={one.group(2)}>"}
+            elif part:
+                entry = {"kernel": f"micro {part.group(1)}"
+                                   f"<{part.group(2) or ''}>"}
             else:
                 entry = {"kernel": name}
             out.append(entry)
@@ -323,8 +373,9 @@ def check_launch(label, fn, ref_fn, args, kw, base_hit=None, lanes=False,
     """A captured launch, kernel against plain version: nearest, any-hit
     and per-ray-tmax-clipped runs bit-equal (and lane counts when asked),
     any-hit flags equal to the nearest hit's; returns (kernel ms, plain ms,
-    max |diff| of t/u/v, nearest hit).  `counts`, a dict, receives the
-    nearest run's node and leaf visits from the plain version."""
+    max |diff| of t/u/v, nearest hit), both times of the nearest run.
+    `counts`, a dict, receives the nearest run's node and leaf visits from
+    the plain version."""
     import torch
     nodes, leaves, ro, rd, tmax = args
     dev = nodes.device
@@ -332,7 +383,11 @@ def check_launch(label, fn, ref_fn, args, kw, base_hit=None, lanes=False,
     run_k = lambda **x: fn(nodes, leaves, ro, rd, tmax, **{**kw, **x})
     run_p = lambda **x: ref_fn(nodes, leaves, ro, rd, tmax, **{**kw, **x})
     tally = {}
-    hit, ref = run_k(), run_p(counts=tally)
+    # the plain version's time: its nearest run here, the launch `ms` times
+    held = []
+    plain_ms = cuda_ms(lambda: held.append(run_p(counts=tally)), 1,
+                       warmup=False)
+    hit, ref = run_k(), held[0]
     torch.cuda.synchronize()
     if counts is not None:
         counts.update({k: int(v) for k, v in tally.items()})
@@ -367,7 +422,6 @@ def check_launch(label, fn, ref_fn, args, kw, base_hit=None, lanes=False,
     from fspt_tpu_torch.ops.traverse import check_stack_overflow
     check_stack_overflow(dev)
     ms = cuda_ms(run_k, 10)
-    plain_ms = cuda_ms(run_p, 1, warmup=False)   # after 3 runs above
     say("kernel", launch=label, lanes=n, hits=int((hit.slot >= 0).sum()),
         mean_visits=f"{hit.visits.float().mean().item():.2f}",
         bit_equal="slot,visits,t,u,v", any_hit="equal", clip="equal",
@@ -441,23 +495,29 @@ def main(kernels_only=False):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
     say("device", name=repr(kind), torch=torch.__version__,
-        cuda=torch.version.cuda, count=torch.cuda.device_count())
+        cuda=torch.version.cuda, count=torch.cuda.device_count(),
+        max_sm_mhz=mhz)
     print(smi, flush=True)                        # name, power limit
 
     # ---- 2. build -------------------------------------------------------
     from fspt_tpu_torch.ops import _build
+    from fspt_tpu_torch.ops.traverse import load_walk1
     from fspt_tpu_torch.ops.traverse3 import load_walk
     from fspt_tpu_torch.ops.traverse4 import load_traverse4
     from fspt_tpu_torch.scripts.perf_r5_treelet import load_dense_mt
     from fspt_tpu_torch.scripts.perf_r5d import load_micro
     from fspt_tpu_torch.scripts.traverse5_proto import load_walk5
-    sources = ("traverse4", "walk", "walk5", "dense_mt", "micro",
-               "traverse4_v0", "walk_v0", "walk_divide")
+    sources = ("traverse4", "walk", "walk1", "walk5", "dense_mt", "micro",
+               "traverse4_v0", "walk_v0", "micro_v0", "walk_divide")
     t0 = time.perf_counter()
     _build.build_all(sources)
-    for load in (load_traverse4, load_walk, load_walk5, load_dense_mt,
-                 load_micro):
+    for load in (load_traverse4, load_walk, load_walk1, load_walk5,
+                 load_dense_mt, load_micro):
         load()
     wall = time.perf_counter() - t0
     for name in sources:
@@ -483,7 +543,8 @@ def main(kernels_only=False):
                                               packet_traverse3_reference)
     from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
                                               packet_traverse4_reference)
-    from fspt_tpu_torch.ops._versus import (TRAVERSE4_SOURCES, WALK_SOURCES,
+    from fspt_tpu_torch.ops._versus import (TRAVERSE4_SOURCES, WALK1_DESIGNS,
+                                            WALK_SOURCES, micro_launcher,
                                             traverse4_launcher, walk_launcher)
     from fspt_tpu_torch.testing import (icosphere_obj,
                                         make_bunny_standin_scene,
@@ -624,26 +685,41 @@ def main(kernels_only=False):
         same_hits(f"walk3 {label}", old(), new())
         shape_walk3(f"walk3 {label}", hit, counts, bound, ms, args, kw)
         earlier[("walk3", label)], _ = versus(f"walk3 {label}", old, new)
+    # walk1: the primary rays and the bounce-0 launch of a "packet" step
+    pcfg = RenderConfig(width=size, height=size, bounces=8,
+                        extra_refraction_iters=0, batch_spp=1,
+                        intersector="packet")
+    with torch.no_grad():
+        pkt_calls = capture_launches(
+            integrator, "packet_traverse",
+            lambda: integrator.trace_paths(a, pcfg, meta, o, d, k0))
+    torch.cuda.synchronize()
+    check_stack_overflow(dev)
+    from fspt_tpu_torch.scripts.perf_walk_launches import run_bench
+    run_bench("cluster_barrier_bench")           # [cluster_barrier] lines
     pkt_kw = dict(leaf_size=meta.leaf_size,
                   stack_depth=max(cfg.stack_depth, meta.pk_stack_depth))
-    pkt_args = (a.pk_nodes, a.pk_leaves, o, d, None)
-    counts = {}
-    ms, plain_ms, err, hit = check_launch(
-        "walk1 primary", packet_traverse, packet_traverse_reference,
-        pkt_args, pkt_kw, counts=counts)
-    rows[("walk1", "primary")] = (ms, plain_ms)
-    max_err["walk1"] = err
-    bounds[("walk1", "primary")] = launch_bound(
-        counts, n, 8, meta.leaf_size, table_rows, group=1024)
-    old, new = (walk_launcher(src, pkt_args, pkt_kw, "fspt_walk1")
-                for src in WALK_SOURCES)
-    same_hits("walk1 primary", old(), new())
-    earlier[("walk1", "primary")], _ = versus("walk1 primary", old, new, 5)
-    say("shape", launch="walk1 primary", lanes=n,
-        node_group_visits=counts["node"] // 1024,
-        leaf_group_visits=counts["leaf"] // 1024, **tested(counts),
-        **bound_fields(bounds[("walk1", "primary")]),
-        share_of_bound=f"{bounds[('walk1', 'primary')]['bound_ms'] / ms:.4f}")
+    for label, (args, kw) in (
+            ("primary", ((a.pk_nodes, a.pk_leaves, o, d, None), pkt_kw)),
+            ("bounce0", pkt_calls[1])):
+        counts = {}
+        ms, plain_ms, err, hit = check_launch(
+            f"walk1 {label}", packet_traverse, packet_traverse_reference,
+            args, kw, counts=counts)
+        rows[("walk1", label)] = (ms, plain_ms)
+        max_err["walk1"] = max(max_err["walk1"], err)
+        bound = launch_bound(counts, hit.t.numel(), 8, kw["leaf_size"],
+                             table_rows, group=1024)
+        bounds[("walk1", label)] = bound
+        first, block, new = (walk_launcher(src, args, kw, fn)
+                             for src, fn in WALK1_DESIGNS)
+        same_hits(f"walk1 {label} first design", first(), new())
+        same_hits(f"walk1 {label} block", block(), new())
+        versus(f"walk1 {label} first design -> cluster", first, new, 5)
+        earlier[("walk1", label)], _ = versus(
+            f"walk1 {label} block -> cluster", block, new, 5)
+        shape_walk1(f"walk1 {label}", hit, counts, bound, ms,
+                    earlier[("walk1", label)], mhz)
     if kernels_only:
         return
 
@@ -715,9 +791,6 @@ def main(kernels_only=False):
     del rw
 
     # ---- 10. packet ------------------------------------------------------
-    pcfg = RenderConfig(width=size, height=size, bounces=8,
-                        extra_refraction_iters=0, batch_spp=1,
-                        intersector="packet")
     rp = Renderer(scene, pcfg, device="cuda")
     launches, samples, seconds, rays = timed_steps(rp, 1, packet_traverse)
     expected = integrator.traversal_launches(pcfg, n, 1)
@@ -886,43 +959,80 @@ def main(kernels_only=False):
 
     # ---- 15. micro ----------------------------------------------------------
     table, mrays = perf_r5d.make_inputs(dev, scene)
-    for v in perf_r5d.VARIANTS:
-        ko = perf_r5d.micro(table, mrays, v, 64)
-        po = perf_r5d.micro_reference(table, mrays, v, 64)
-        torch.cuda.synchronize()
+
+    def micro_check(v, k, counts=None):
+        """Kernel against plain version, bit for bit (NaN lanes as NaN);
+        returns the plain version's ms (one run)."""
+        ko = perf_r5d.micro(table, mrays, v, k)
+        held = []
+        plain_ms = cuda_ms(lambda: held.append(perf_r5d.micro_reference(
+            table, mrays, v, k, counts=counts)), 1, warmup=False)
+        po = held[0]
         same = (ko == po) | (ko.isnan() & po.isnan())
         if not bool(same.all()):
-            raise AssertionError(f"micro {v}: kernel and plain version "
+            raise AssertionError(f"micro {v} k={k}: kernel and plain version "
                                  f"differ on {int((~same).sum())} lanes")
         max_err["micro"] = max(max_err.get("micro", 0.0), float(
             torch.where(same, 0.0, (ko - po).abs()).max()))
-        say("micro", variant=v, k=64, bit_equal="out",
-            hits=int((ko < 1e9).sum()))
+        say("micro", variant=v, k=k, bit_equal="out",
+            hits=int((ko < 1e9).sum()), plain_ms=f"{plain_ms:.2f}")
+        return plain_ms
+
+    for v in perf_r5d.VARIANTS:
+        micro_check(v, 64)
+    for v in ("leaf", "leaf2"):
+        micro_check(v, 512)
+    lanes = perf_r5d.WALKS * perf_r5d.LANES
+    # leaf4's rows in closed form (substep i draws hash((1 + i) % rows, i)
+    # + 0..3), held to what the plain version tallies over the K substeps
+    i = torch.arange(perf_r5d.K, device=dev)
+    drawn = torch.remainder(perf_r5d._row_hash(
+        torch.remainder(1 + i, table.shape[0]), i, table.shape[0])[:, None]
+        + torch.arange(4, device=dev), table.shape[0])
+    tris4 = real_triangles(table[drawn], 8).sum(1) * lanes
+    counts = {}
+    leaf4_plain_ms = micro_check("leaf4", perf_r5d.K, counts)
+    if int(counts["triangles"]) != int(tris4.sum()):
+        raise AssertionError("micro leaf4: the closed form of its rows "
+                             "differs from what the plain version drew")
+    # the K=4096 comparison of `full` also gives the plain version's time
+    # and the real triangles the substeps tested, for the bound
+    counts = {}
+    full_plain_ms = micro_check("full", perf_r5d.K, counts)
+    # `full`: every substep is a node visit (all 8 children: the micro has no
+    # link test) and a leaf visit (the real triangles of the row it drew) of
+    # all 1,024 lanes, one row fetch per 128-lane walk; `leaf4`: four leaf
+    # visits a substep and no node visit
+    for v, node_visits, units, tris, plain_ms in (
+            ("full", lanes * perf_r5d.K, 1, int(counts["triangles"]),
+             full_plain_ms),
+            ("leaf4", 0, 4, int(tris4.sum()), leaf4_plain_ms)):
+        ms = cuda_ms(lambda: perf_r5d.micro(table, mrays, v), 5)
+        rows[("micro", v)] = (ms, plain_ms)
+        bounds[("micro", v)] = traversal_bound(
+            lanes, 8, 8, table.shape[0], node_visits,
+            lanes * perf_r5d.K * units, tri_tests=tris,
+            group=perf_r5d.LANES, in_planes=6, out_planes=1)
+        say("micro_bound", variant=v, k=perf_r5d.K,
+            triangles_per_substep=f"{tris / lanes / perf_r5d.K:.2f}",
+            **bound_fields(bounds[("micro", v)]), ms=f"{ms:.4f}",
+            share_of_bound=f"{bounds[('micro', v)]['bound_ms'] / ms:.4f}",
+            cycles_per_substep=f"{ms * 1e-3 * mhz * 1e6 / perf_r5d.K:.0f}")
+    for v in perf_r5d.VARIANTS:
+        old, new = (micro_launcher(src, table, mrays, v, perf_r5d.K)
+                    for src in ("micro_v0", "micro"))
+        ko, kn = old(), new()
+        if not bool(((ko == kn) | (ko.isnan() & kn.isnan())).all()):
+            raise AssertionError(f"micro {v}: the two designs differ")
+        earlier[("micro", v)], _ = versus(f"micro {v} K={perf_r5d.K}", old,
+                                          new, 3)
     perf_r5d.micro.launches = 0
     ns = perf_r5d.main(scene)
     micro_launches = perf_r5d.micro.launches
     if micro_launches == 0:
         raise AssertionError("perf_r5d launched micro no time")
-    ms = cuda_ms(lambda: perf_r5d.micro(table, mrays, "full"), 5)
-    counts = {}
-    plain_ms = cuda_ms(lambda: perf_r5d.micro_reference(
-        table, mrays, "full", counts=counts), 1, warmup=False)
-    rows[("micro", "full")] = (ms, plain_ms)
-    # `full`: every substep is a node visit (all 8 children: the micro has no
-    # link test) and a leaf visit (the real triangles of the row it drew) of
-    # all 1,024 lanes, one row fetch per 128-lane walk
-    lanes = perf_r5d.WALKS * perf_r5d.LANES
-    bounds[("micro", "full")] = traversal_bound(
-        lanes, 8, 8, table.shape[0], lanes * perf_r5d.K, lanes * perf_r5d.K,
-        tri_tests=int(counts["triangles"]), group=perf_r5d.LANES,
-        in_planes=6, out_planes=1)
-    tris = int(counts["triangles"]) / lanes / perf_r5d.K
     say("perf_r5d", micro_launches=micro_launches, k=perf_r5d.K,
-        triangles_per_substep=f"{tris:.2f}",
-        **bound_fields(bounds[("micro", "full")]),
-        **{f"{v}_ns": f"{x:.1f}" for v, x in ns.items()},
-        full_ms=f"{ms:.4f}", full_plain_ms=f"{plain_ms:.4f}",
-        card=repr(smi))
+        **{f"{v}_ns": f"{x:.1f}" for v, x in ns.items()}, card=repr(smi))
 
     # ---- the kernels and the result --------------------------------------
     # library_ms is null in every row: no PyTorch call computes a BVH
@@ -965,14 +1075,20 @@ def main(kernels_only=False):
         row("walk3", "fspt_tpu_torch/csrc/walk.cu",
             "fspt_tpu/ops/traverse3.py:64", walk_launches,
             per_step(walk_cfg)),
-        row("walk1", "fspt_tpu_torch/csrc/walk.cu",
+        row("walk1", "fspt_tpu_torch/csrc/walk1.cu",
             "fspt_tpu/ops/traverse.py:243", packet_launches, per_step(pcfg)),
         study_row("walk5", "bounce0", "fspt_tpu_torch/csrc/walk5.cu",
                   "scripts/traverse5_proto.py:70", v5_launches),
         study_row("dense_mt", "stage_e", "fspt_tpu_torch/csrc/dense_mt.cu",
                   "scripts/perf_r5_treelet.py:94", dense_launches),
-        study_row("micro", "full", "fspt_tpu_torch/csrc/micro.cu",
-                  "scripts/perf_r5d.py:42", micro_launches)]}), flush=True)
+        {**study_row("micro", "full", "fspt_tpu_torch/csrc/micro.cu",
+                     "scripts/perf_r5d.py:42", micro_launches),
+         "earlier_ms": earlier[("micro", "full")],
+         "leaf4_ms": rows[("micro", "leaf4")][0],
+         "leaf4_plain_ms": rows[("micro", "leaf4")][1],
+         "leaf4_bound_ms": bounds[("micro", "leaf4")]["bound_ms"],
+         "leaf4_bound_by": bounds[("micro", "leaf4")]["bound_by"],
+         "leaf4_earlier_ms": earlier[("micro", "leaf4")]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -46,13 +46,19 @@ def _nvcc() -> str:
     return path
 
 
-def _build(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
+def _source_text(path: str) -> bytes:
+    """A source and, in turn, every file of csrc/ it includes: an edited
+    include rebuilds too."""
+    with open(path, "rb") as f:
         text = f.read()
     for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):
-        with open(os.path.join(CSRC, inc.decode()), "rb") as f:
-            text += f.read()                # an edited include rebuilds too
+        text += _source_text(os.path.join(CSRC, inc.decode()))
+    return text
+
+
+def _build(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    text = _source_text(src)
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"libfspt_{name}_{tag}.so")
     log = out + ".log"

@@ -1,19 +1,22 @@
-"""Measuring launchers: the traversal kernels and their first designs, called
-directly.
+"""Measuring launchers: the traversal kernels and their earlier designs,
+called directly.
 
-csrc/traverse4_v0.cu and csrc/walk_v0.cu are the first designs of
-csrc/traverse4.cu and csrc/walk.cu, kept buildable so that a measurement can
-time old against new in one process on one card.  Nothing on a render path
-loads them: the ops modules know only the current sources.  This module
-builds any of the four through ops/_build.py and returns closures that
+csrc/traverse4_v0.cu, csrc/walk_v0.cu and csrc/micro_v0.cu are the first
+designs of csrc/traverse4.cu, csrc/walk.cu and csrc/micro.cu, and
+`fspt_walk1_block` of csrc/walk.cu is the packet walk as one 1,024-thread
+block, what `fspt_walk1` was before csrc/walk1.cu made a packet a thread
+block cluster.  They are kept buildable so that a measurement can time old
+against new in one process on one card.  Nothing on a render path loads
+them: the ops modules know only the current sources and entry points.  This
+module builds any source through ops/_build.py and returns closures that
 launch one captured call without the wrappers' checks, old and new through
 the same host code, so that their times compare.  `fspt_walk3_padded` (both
 walk sources) is `fspt_walk3` whose blocks ask for shared memory they never
 touch, which cuts the blocks an SM can hold.
 
 Used by chip_smoke.py ([versus] and [shape] lines) and by
-fspt_tpu_torch/scripts/perf_walk_launches.py.  No launch here adds to a
-wrapper's `launches` count.
+fspt_tpu_torch/scripts/perf_walk_launches.py and perf_r5d.py.  No launch
+here adds to a wrapper's `launches` count.
 """
 
 from __future__ import annotations
@@ -29,8 +32,17 @@ from fspt_tpu_torch.ops.traverse4 import TRAVERSE4_ARGTYPES
 
 TRAVERSE4_SOURCES = ("traverse4_v0", "traverse4")      # first design, current
 WALK_SOURCES = ("walk_v0", "walk")
-WALK_FUNCTIONS = {"fspt_walk3": WALK_ARGTYPES, "fspt_walk1": WALK_ARGTYPES,
-                  "fspt_walk3_padded": WALK_ARGTYPES + [ctypes.c_int]}
+# the packet walk: (source, entry point) of the first design, of the
+# 1,024-thread block that followed it, and of the current cluster kernel
+WALK1_DESIGNS = (("walk_v0", "fspt_walk1"), ("walk", "fspt_walk1_block"),
+                 ("walk1", "fspt_walk1"))
+_PADDED = WALK_ARGTYPES + [ctypes.c_int]
+WALK_FUNCTIONS = {
+    "walk_v0": {"fspt_walk3": WALK_ARGTYPES, "fspt_walk1": WALK_ARGTYPES,
+                "fspt_walk3_padded": _PADDED},
+    "walk": {"fspt_walk3": WALK_ARGTYPES, "fspt_walk1_block": WALK_ARGTYPES,
+             "fspt_walk3_padded": _PADDED},
+    "walk1": {"fspt_walk1": WALK_ARGTYPES}}
 
 
 def _outputs(n, dev):
@@ -74,8 +86,10 @@ def traverse4_launcher(source, args, kw):
 def walk_launcher(source, args, kw, fn_name="fspt_walk3", pad_bytes=0):
     """A closure that launches `fn_name` of csrc/<source>.cu on a captured
     group-walk call (args, kw) and returns its PacketHit; with `pad_bytes`,
-    `fspt_walk3_padded`."""
-    lib = _build.load(source, WALK_FUNCTIONS)
+    `fspt_walk3_padded`.  A source that is a build variant of another
+    (csrc/walk_divide.cu) has that one's entry points."""
+    lib = _build.load(source, WALK_FUNCTIONS.get(source,
+                                                 WALK_FUNCTIONS["walk"]))
     nodes, leaves, ro, rd, tmax = args
     tmax, planes, dev = ray_planes(source, nodes, leaves, ro, rd, tmax)
     n = ro.x.shape[0]
@@ -100,4 +114,26 @@ def walk_launcher(source, args, kw, fn_name="fspt_walk3", pad_bytes=0):
                      flag.data_ptr(), ctypes.c_void_p(stream), *tail)
         _raise(lib, f"{source} {fn_name}", err)
         return hit
+    return launch
+
+
+def micro_launcher(source, table, rays, variant, k):
+    """A closure that launches `fspt_micro` of csrc/<source>.cu ("micro_v0",
+    the first design, or "micro") on the inputs of perf_r5d.micro and
+    returns its (1, 8, 128) output."""
+    from fspt_tpu_torch.scripts.perf_r5d import (LANES, MICRO_ARGTYPES,
+                                                 VARIANTS, WALKS)
+    lib = _build.load(source, {"fspt_micro": MICRO_ARGTYPES})
+    dev = table.device
+    index = VARIANTS.index(variant)
+
+    def launch():
+        out = torch.empty((1, WALKS, LANES), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.fspt_micro(table.data_ptr(), table.shape[0],
+                                 rays.data_ptr(), out.data_ptr(), index, k,
+                                 ctypes.c_void_p(stream))
+        _raise(lib, f"{source} {variant}", err)
+        return out
     return launch

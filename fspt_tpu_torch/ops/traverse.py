@@ -17,8 +17,12 @@ and leaf visits, the same for all its rays.  Any-hit ends the walk after a
 leaf visit once every ray has a hit (or tmax <= 0).
 
 This is `ops/traverse3.py`'s group walk at group size 1024 with v1's any-hit
-rule: the plain version and the CUDA kernel are shared with it (csrc/walk.cu
-exports this size as `fspt_walk1`).  Deviations from the JAX kernel:
+rule, and the plain version is shared with it.  The CUDA kernel is
+`fspt_walk1` of csrc/walk1.cu: a packet is a thread block cluster of CLUSTER
+blocks, each with 1024 / CLUSTER of the packet's rays and its own replica of
+the stack, and the packet's vote crosses the blocks through distributed
+shared memory (`packet_geometry` is the launch it makes).  Its ray tests are
+csrc/walk.cu's (csrc/walk_common.cuh).  Deviations from the JAX kernel:
   * no VMEM table budget (`check_vmem_budget`): that is a limit of the
     TPU's vector memory; the CUDA kernel reads the tables from device
     memory, so the port takes tables of any size;
@@ -32,6 +36,7 @@ exports this size as `fspt_walk1`).  Deviations from the JAX kernel:
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +48,8 @@ MAX_T = 1.0e5                                   # reference tracer.fs:10
 SENTINEL = int(np.iinfo(np.int32).min)          # stack-empty marker
 ROW = 128                                       # floats per packed table row
 PACKET = 1024                                   # rays per v1 packet
+CLUSTER = 8            # thread blocks a packet: kCluster in csrc/walk1.cu
+CONTROL_THREADS = 64                            # two control warps a block
 
 
 class PacketHit(NamedTuple):
@@ -226,14 +233,53 @@ def packet_traverse_reference(nodes, leaves, origin: V3, direction: V3,
         v1=True, counts=counts)
 
 
+def packet_geometry(n: int) -> dict:
+    """The launch csrc/walk1.cu makes for n rays, a packet a cluster of
+    CLUSTER blocks: {"packets", "blocks" (the grid: whole clusters),
+    "threads" (a block: its rays and the control warps), "rays_per_block",
+    "pad_rays" (pad rays that fill the last packet), "pad_blocks" (blocks
+    of the last cluster that hold pad rays only)}.  The kernel library
+    answers the same question for its own launch (`kernel_geometry`); the
+    card's tests hold the two together."""
+    if n < 0:
+        raise ValueError(f"packet_geometry: n must be >= 0, got {n}")
+    per_block = PACKET // CLUSTER
+    packets = -(-n // PACKET)
+    blocks = packets * CLUSTER
+    return {"packets": packets, "blocks": blocks,
+            "threads": per_block + CONTROL_THREADS,
+            "rays_per_block": per_block, "pad_rays": packets * PACKET - n,
+            "pad_blocks": blocks - -(-n // per_block)}
+
+
+def load_walk1() -> ctypes.CDLL:
+    """The packet-walk kernel library (csrc/walk1.cu), built on first
+    call."""
+    from fspt_tpu_torch.ops import _build
+    from fspt_tpu_torch.ops.traverse3 import WALK_ARGTYPES
+    return _build.load("walk1", {"fspt_walk1": WALK_ARGTYPES})
+
+
+def kernel_geometry(n: int) -> tuple[int, int]:
+    """(blocks, threads a block) of the launch `fspt_walk1` makes for n
+    rays, asked of the built library; it launches nothing."""
+    from fspt_tpu_torch.ops import _build
+    out = ctypes.POINTER(ctypes.c_int)
+    lib = _build.load("walk1",
+                      {"fspt_walk1_geometry": [ctypes.c_int, out, out]})
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    lib.fspt_walk1_geometry(n, ctypes.byref(blocks), ctypes.byref(threads))
+    return blocks.value, threads.value
+
+
 def packet_traverse(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
                     leaf_size: int = 8, any_hit: bool = False,
                     stack_depth: int = 64) -> PacketHit:
     """v1 packet traversal over 8-wide tables; see the module docstring.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    (`fspt_walk1` of csrc/walk.cu) on the current stream or raise; every
-    launch adds one to `packet_traverse.launches`."""
+    (`fspt_walk1` of csrc/walk1.cu, a cluster launch) on the current stream
+    or raise; every launch adds one to `packet_traverse.launches`."""
     from fspt_tpu_torch.ops.traverse3 import launch_walk
     tmax, planes, dev = ray_planes("packet_traverse", nodes, leaves, origin,
                                    direction, tmax)
@@ -244,7 +290,7 @@ def packet_traverse(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
     return launch_walk("packet_traverse", "fspt_walk1", packet_traverse,
                        nodes, leaves, planes, leaf_size=leaf_size,
                        any_hit=any_hit, stack_depth=stack_depth,
-                       tree_width=8, lane_counts=False)
+                       tree_width=8, lane_counts=False, load=load_walk1)
 
 
 packet_traverse.launches = 0

@@ -285,14 +285,15 @@ WALK_ARGTYPES = (
 
 def load_walk() -> ctypes.CDLL:
     """The group-walk kernel library (csrc/walk.cu), built on first call."""
-    return _build.load("walk", {"fspt_walk3": WALK_ARGTYPES,
-                                "fspt_walk1": WALK_ARGTYPES})
+    return _build.load("walk", {"fspt_walk3": WALK_ARGTYPES})
 
 
 def launch_walk(name, fn_name, counter, nodes, leaves, planes, *, leaf_size,
-                any_hit, stack_depth, tree_width, lane_counts) -> PacketHit:
-    """Launch `fn_name` of csrc/walk.cu on the current stream and add one
-    to `counter.launches`; raise on a refused launch."""
+                any_hit, stack_depth, tree_width, lane_counts,
+                load=load_walk) -> PacketHit:
+    """Launch `fn_name` of the library `load()` returns (csrc/walk.cu's
+    unless told otherwise) on the current stream and add one to
+    `counter.launches`; raise on a refused launch."""
     n = planes[0].shape[0]
     check_tables(name, nodes, leaves, leaf_size, stack_depth)
     check_kernel_inputs(name, nodes, leaves, planes, n)
@@ -306,7 +307,7 @@ def launch_walk(name, fn_name, counter, nodes, leaves, planes, *, leaf_size,
                     visits=e(torch.int32))
     if n == 0:
         return hit
-    lib = load_walk()
+    lib = load()
     flag = error_flag(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

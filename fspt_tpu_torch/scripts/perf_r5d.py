@@ -14,11 +14,31 @@ variants stay directly comparable:
   fetch1    ONE dynamic row fetch + consume
   vector    slab + stack + MT on a static panel, no fetch
 
-ns/substep = t / k.  `micro` dispatches on the tensors' device: the plain
-version (`micro_reference`, a torch loop over k) for CPU tensors; for CUDA
-tensors the kernel of csrc/micro.cu (one 1024-thread block), or an
-exception.  Both compute `out = bt + acc + cur + ptr` exactly as the JAX
-kernel does, bit for bit with each other:
+ns/substep = t / k, and what it means depends on the variant's family,
+because csrc/micro.cu lays the three families on the card differently:
+  * full, node, vector are chains (a substep's vote names the next row):
+    each of the 8 walks is a thread block cluster of 8 blocks on as many
+    SMs, eight threads a lane, the vote crossing the cluster through
+    distributed shared memory, the next substep's nine candidate rows
+    fetched under the tests.  ns/substep is the latency of ONE walk's
+    substep with its SMs to itself;
+  * leaf, leaf2, leaf4 have no chain (the row sequence is (1 + i) % rows
+    and `bt` a minimum), so their substeps are cut into slices over the
+    whole card.  ns/substep is the substeps' work over the launch's time: a
+    throughput of the card, not a latency;
+  * fetch, fetch1 sum in substep order: one chain a walk, a block a walk,
+    the known rows kept in flight ahead.  ns/substep is a consume step with
+    the fetch hidden.
+The first design (csrc/micro_v0.cu: the TPU kernel's one program as one
+1,024-thread block, so one SM's issue rate for eight walks, which is what
+a substep of csrc/walk5.cu's one-block programs costs) stays measurable:
+`main` prints its time beside each variant's (through ops/_versus.py).
+
+`micro` dispatches on the tensors' device: the plain version
+(`micro_reference`, a torch loop over k) for CPU tensors; for CUDA tensors
+the kernels of csrc/micro.cu, or an exception.  Both compute
+`out = bt + acc + cur + ptr` exactly as the JAX kernel does, bit for bit
+with each other:
   * row indices `cur * -1640531527 + i` wrap in int32 and are reduced by a
     floor modulo (jnp's `%`);
   * `ix = 1 / dx` without safe_inv; float links are cast to int32;
@@ -193,14 +213,15 @@ MICRO_ARGTYPES = [_F, _I, _F, _F, _I, _I, _F]   # table, rows, rays, out,
 
 
 def load_micro() -> ctypes.CDLL:
-    """The micro kernel library (csrc/micro.cu), built on first call."""
+    """The micro kernels' library (csrc/micro.cu), built on first call."""
     return _build.load("micro", {"fspt_micro": MICRO_ARGTYPES})
 
 
 def micro(table, rays, variant: str, k: int = K):
     """k substeps of `variant`; see the module docstring.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel on the current stream
-    or raise, and every launch adds one to `micro.launches`."""
+    the plain version; CUDA tensors launch the variant's kernels on the
+    current stream or raise, and every call that launches adds one to
+    `micro.launches`."""
     _check(table, rays, variant, k)
     dev = table.device
     if dev.type == "cpu":
@@ -242,25 +263,39 @@ def make_inputs(device, scene=None):
     return table, rays
 
 
+def _seconds(fn, reps):
+    """Mean wall time of fn() over `reps` runs that end in a synchronise,
+    after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
 def main(scene=None, k: int = K, reps: int = 20):
-    """ns/substep of the script's four variants on the card; returns
-    {variant: ns/substep}."""
+    """ns/substep of the script's four variants on the card (see the module
+    docstring for what it means for each family), each beside the first
+    design's (csrc/micro_v0.cu, 3 runs); returns {variant: ns/substep}."""
     if not torch.cuda.is_available():
         raise SystemExit("perf_r5d: needs a CUDA device")
+    from fspt_tpu_torch.ops._versus import micro_launcher
     dev = torch.device("cuda")
     table, rays = make_inputs(dev, scene)
     out = {}
     for variant in MAIN_VARIANTS:
-        micro(table, rays, variant, k)              # build + warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            micro(table, rays, variant, k)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / reps
+        dt = _seconds(lambda: micro(table, rays, variant, k), reps)
+        first = _seconds(micro_launcher("micro_v0", table, rays, variant, k),
+                         3)
         out[variant] = dt / k * 1e9
-        print(f"{variant:8s} {dt / k * 1e9:8.1f} ns/substep "
-              f"({dt * 1e3:.2f} ms for {k})", flush=True)
+        what = ("a walk's latency" if variant in _NODE
+                else "work over time")
+        print(f"{variant:8s} {dt / k * 1e9:8.1f} ns/substep, {what} "
+              f"({dt * 1e3:.3f} ms for {k}); first design "
+              f"{first / k * 1e9:8.1f} ns/substep ({first * 1e3:.2f} ms), "
+              f"{first / dt:.1f}x", flush=True)
     return out
 
 

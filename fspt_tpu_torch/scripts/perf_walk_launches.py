@@ -9,7 +9,9 @@ without compaction ("walk": csrc/walk.cu `fspt_walk3`) on the bench scene at
 512x512, and times each with the first design of the kernel
 (csrc/traverse4_v0.cu, csrc/walk_v0.cu) and with the current one (through
 the launchers of ops/_versus.py), after checking that the two agree bit for
-bit.  For the group walk it also times
+bit; and the launches of one "packet" sample with the packet walk as one
+1,024-thread block (csrc/walk.cu `fspt_walk1_block`) and as a thread block
+cluster (csrc/walk1.cu `fspt_walk1`).  For the group walk it also times
 each launch with its groups handed out longest first (by the visit counts
 the launch itself reports: what an order known in advance could gain), and
 with csrc/walk_divide.cu, the current kernel built with the compiler's own
@@ -18,14 +20,18 @@ with csrc/walk_divide.cu, the current kernel built with the compiler's own
 Run on the card:
     python -m fspt_tpu_torch.scripts.perf_walk_launches
     python -m fspt_tpu_torch.scripts.perf_walk_launches --row-fetch
+    python -m fspt_tpu_torch.scripts.perf_walk_launches --cluster-barrier
 The second form builds and runs row_fetch_bench.cu beside this file: the
 cycles a lone warp takes to draw 1, 2, 4 and 9 table rows from L2 by plain
-loads, asynchronous copies and bulk copies.
+loads, asynchronous copies and bulk copies.  The third builds and runs
+cluster_barrier_bench.cu: the cycles a packet's vote costs across a thread
+block cluster of 2, 4 and 8 blocks against one 1,024-thread block.
 
-Both are measurement studies that no render path and no smoke test needs:
-they stay because PERF.md and the header of csrc/walk.cu cite their numbers
-(the per-launch times of a sample, the longest-first times, the row-fetch
-cycles), and a cited number needs the script that produced it.
+All are measurement studies that no render path needs: they stay because
+PERF.md and the headers of csrc/walk.cu and csrc/walk1.cu cite their
+numbers (the per-launch times of a sample, the longest-first times, the
+row-fetch and barrier cycles), and a cited number needs the script that
+produced it.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ import sys
 import torch
 
 from fspt_tpu_torch.ops import _build, traverse3
-from fspt_tpu_torch.ops._versus import (TRAVERSE4_SOURCES, WALK_SOURCES,
-                                        traverse4_launcher, walk_launcher)
+from fspt_tpu_torch.ops._versus import (TRAVERSE4_SOURCES, WALK1_DESIGNS,
+                                        WALK_SOURCES, traverse4_launcher,
+                                        walk_launcher)
 from fspt_tpu_torch.ops.traverse import check_stack_overflow
 
 BENCH_SCHEDULE = (1.5, 11, 48, 160, 640, 2048, 2048, 2048)
@@ -139,14 +146,23 @@ def compare(label, calls, launcher, old, new, reorder=False, variant=None):
     return total
 
 
-def row_fetch():
-    """Build row_fetch_bench.cu with nvcc and run it."""
+def walk1_launcher(source, args, kw):
+    """walk_launcher for the packet walk: each source's own entry point."""
+    return walk_launcher(source, args, kw, dict(WALK1_DESIGNS)[source])
+
+
+def run_bench(name):
+    """Build <name>.cu beside this file with nvcc and run it; returns what
+    it printed."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    exe = os.path.join(_build.BUILD_DIR, "row_fetch_bench")
+    exe = os.path.join(_build.BUILD_DIR, name)
     subprocess.run([_build._nvcc(), "-O3", "-arch=sm_90a", "-o", exe,
-                    os.path.join(here, "row_fetch_bench.cu")], check=True)
-    subprocess.run([exe], check=True)
+                    os.path.join(here, f"{name}.cu")], check=True)
+    out = subprocess.run([exe], check=True, capture_output=True,
+                         text=True).stdout
+    print(out, end="", flush=True)
+    return out
 
 
 def main(scene=None):
@@ -162,7 +178,8 @@ def main(scene=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    _build.build_all(TRAVERSE4_SOURCES + WALK_SOURCES + (WALK_DIVIDE,))
+    _build.build_all(TRAVERSE4_SOURCES + WALK_SOURCES
+                     + (WALK_DIVIDE, "walk1"))
     scene = scene or make_bunny_standin_scene(subdivisions=6)
     base = dict(width=SIZE, height=SIZE, bounces=8, extra_refraction_iters=0,
                 batch_spp=8)
@@ -171,6 +188,7 @@ def main(scene=None):
                          nee_env_nearest=True, escape_env_nearest=True,
                          compact_schedule=BENCH_SCHEDULE)
     walk = RenderConfig(**base, intersector="walk")
+    packet = RenderConfig(**base, intersector="packet")
     r = Renderer(scene, split, device="cuda")
     a, meta = r.arrays, scene.meta
     n = SIZE * SIZE
@@ -185,7 +203,9 @@ def main(scene=None):
             ("traverse4", split, "packet_traverse4", traverse4_launcher,
              TRAVERSE4_SOURCES),
             ("walk3", walk, "packet_traverse3", walk_launcher,
-             WALK_SOURCES)):
+             WALK_SOURCES),
+            ("walk1", packet, "packet_traverse", walk1_launcher,
+             ("walk", "walk1"))):
         with torch.no_grad():
             calls = capture(integrator, name, lambda: integrator.trace_paths(
                 a, cfg, meta, o, d, k0))
@@ -200,6 +220,8 @@ def main(scene=None):
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--row-fetch"]:
-        row_fetch()
+        run_bench("row_fetch_bench")
+    elif sys.argv[1:] == ["--cluster-barrier"]:
+        run_bench("cluster_barrier_bench")
     else:
         main()

@@ -343,13 +343,19 @@ def test_cuda_dense_mt_bit_exact_vs_plain(dense_inputs, cuda_device, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, 8, 9])
+@pytest.mark.parametrize("k", [0, 1, 64, 257])
 @pytest.mark.parametrize("variant", perf_r5d.VARIANTS)
-def test_cuda_micro_bit_exact_vs_plain(scene, cuda_device, variant):
-    # the real table, 3e38 boxes included: both versions round alike
+def test_cuda_micro_bit_exact_vs_plain(scene, cuda_device, variant, k, rows):
+    # the real table, 3e38 boxes included: both versions round alike; cut to
+    # 8 and 9 rows the row numbers wrap at once (k = 257 is past a slice of
+    # the leaf family's substeps and past the fetch variants' ring)
     table, rays = perf_r5d.make_inputs(cuda_device, scene[0])
+    if rows:
+        table = table[:rows].contiguous()
     before = perf_r5d.micro.launches
-    out = perf_r5d.micro(table, rays, variant, 64)
+    out = perf_r5d.micro(table, rays, variant, k)
     torch.cuda.synchronize()
     assert perf_r5d.micro.launches == before + 1
-    ref = perf_r5d.micro_reference(table, rays, variant, 64)
+    ref = perf_r5d.micro_reference(table, rays, variant, k)
     assert bool(((out == ref) | (out.isnan() & ref.isnan())).all())

@@ -455,21 +455,43 @@ def test_cuda_kernel_bit_exact_vs_plain(setup, cuda_device, case):
 
 # ---- the edges a thread-to-ray mapping can break -------------------------
 # Lane counts around a group (128) and a packet (1024), a launch with no
-# live lane, any-hit, width 16, and a stack one entry short.  On the CPU the
+# live lane, any-hit, width 16, and a stack one entry short.  The packet
+# kernel lays a packet on a thread block cluster (csrc/walk1.cu: 8 blocks of
+# 128 rays), so it also gets lane counts around one packet and around eight
+# (a last cluster that is one ray and 1,023 pad rays; seven blocks of pad
+# rays only).  On the CPU the
 # plain version is held to the per-ray walk of ops/traverse4 (a group walk
 # finds the same nearest hits; its `visits` are one count per group); on a
 # card the kernels are held to the plain version bit for bit.
 
 EDGES = ["n0", "n1", "n127", "n129", "n1000", "dead", "any_hit", "width16"]
+PACKET_EDGES = ["n1023", "n1025", "n8191", "n8193", "any_hit_n1025"]
 EDGE_IMPLS = [(impl, case) for impl in ("walk", "packet") for case in EDGES
-              if not (impl == "packet" and case == "width16")]
+              if not (impl == "packet" and case == "width16")] + [
+                  ("packet", case) for case in PACKET_EDGES]
+
+
+def _edge_rays(setup, n):
+    """The setup's rays, or for a launch of more than its 1,024 as many made
+    the same way from the seed n."""
+    _, o, d, tm = setup
+    if n <= N:
+        return o, d, tm
+    rng = np.random.default_rng(n)
+    o = rng.uniform(-2, 2, size=(3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    tm = rng.uniform(0.05, 1.5, size=n).astype(np.float32)
+    tm[::2] = 1.0e5
+    return o, d, tm
 
 
 def _edge_case(setup, impl, case, device="cpu"):
     """(function, plain version, args, kwargs, n) of an edge launch."""
-    pks, o, d, tm = setup
-    n = {"n0": 0, "n1": 1, "n127": 127, "n129": 129, "n1000": 1000}.get(
-        case, 129)
+    pks = setup[0]
+    digits = case.rpartition("n")[2]       # "n1000", "any_hit_n1025"
+    n = int(digits) if digits.isdigit() else 129
+    o, d, tm = _edge_rays(setup, n)
     width = 16 if case == "width16" else 8
     pk = pks[width]
     t = lambda a: _t(a).to(device)
@@ -477,7 +499,7 @@ def _edge_case(setup, impl, case, device="cpu"):
     args = (t(pk.nodes), t(pk.leaves), V3(*(t(x[:n]) for x in o)),
             V3(*(t(x[:n]) for x in d)), t(tmax))
     kw = dict(leaf_size=8, stack_depth=_stack(pk, width),
-              any_hit=case == "any_hit")
+              any_hit=case.startswith("any_hit"))
     if impl == "walk":
         kw["tree_width"] = width
         return packet_traverse3, packet_traverse3_reference, args, kw, n
@@ -511,6 +533,10 @@ def per_ray(setup):
 def test_edge_launches_plain(setup, per_ray, impl, case):
     fn, _, args, kw, n = _edge_case(setup, impl, case)
     hit = fn(*args, **kw)
+    if n > N:                      # rays of their own: their per-ray walk
+        from fspt_tpu_torch.ops.traverse4 import packet_traverse4_reference
+        per_ray = packet_traverse4_reference(*args, leaf_size=8,
+                                             stack_depth=256)
     assert all(x.shape == (n,) for x in hit)
     assert hit.slot.dtype == torch.int32 and hit.t.dtype == torch.float32
     if n == 0:
@@ -521,7 +547,7 @@ def test_edge_launches_plain(setup, per_ray, impl, case):
     assert torch.equal(hit.visits, first) and hit.visits.min() >= 1
     if case == "dead":
         assert (hit.slot == -1).all() and (hit.t == 0).all()
-    elif case == "any_hit":
+    elif case.startswith("any_hit"):
         assert torch.equal(hit.slot >= 0, per_ray.slot[:n] >= 0)
     else:
         assert torch.equal(hit.slot, per_ray.slot[:n])
@@ -556,13 +582,21 @@ def test_cuda_kernel_edge_launches_bit_exact_vs_plain(setup, cuda_device,
         lk = fn(*args, **kw, lane_counts=True)
         lp = ref_fn(*args, **kw, lane_counts=True)
         assert torch.equal(lk.visits, lp.visits)
+    if impl == "packet":
+        # the grid the kernel launched is the one packet_geometry names
+        from fspt_tpu_torch.ops.traverse import (kernel_geometry,
+                                                 packet_geometry)
+        g = packet_geometry(n)
+        assert kernel_geometry(n) == (g["blocks"], g["threads"])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("impl", ["walk", "packet"])
-def test_cuda_kernel_stack_one_entry_short_raises(setup, cuda_device, impl):
+@pytest.mark.parametrize("impl,case", [("walk", "n1000"), ("packet", "n1000"),
+                                       ("packet", "n1025")])
+def test_cuda_kernel_stack_one_entry_short_raises(setup, cuda_device, impl,
+                                                  case):
     from fspt_tpu_torch.ops.traverse import check_stack_overflow
-    fn, ref_fn, args, kw, _ = _edge_case(setup, impl, "n1000", cuda_device)
+    fn, ref_fn, args, kw, _ = _edge_case(setup, impl, case, cuda_device)
     need = _needed_depth(ref_fn, args, kw)
     ours = fn(*args, **{**kw, "stack_depth": need})
     torch.cuda.synchronize()

@@ -7,10 +7,10 @@ Run from the root of a checkout, with no arguments:
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: name, `nvidia-smi` name and power limit, torch/CUDA versions;
-  2. build: nvcc builds the ten sources of csrc/ (traverse4, walk, walk1,
-     walk5, dense_mt, micro, the first designs traverse4_v0, walk_v0 and
-     micro_v0 that only the [versus] and [shape] lines launch, and
-     walk_divide, a measurement build of walk that only
+  2. build: nvcc builds the twelve sources of csrc/ (traverse4, walk,
+     walk1, walk5, dense_mt, micro, the first designs traverse4_v0, walk_v0,
+     walk5_v0, dense_mt_v0 and micro_v0 that only the [versus] and [shape]
+     lines launch, and walk_divide, a measurement build of walk that only
      scripts/perf_walk_launches.py launches) concurrently into
      fspt_tpu_torch/_build/; nvcc seconds and each kernel's registers and
      spills;
@@ -66,14 +66,24 @@ Phases (one line each; any failure raises and exits non-zero):
  12. CLI: `python -m fspt_tpu_torch render` of a tiny scene file with and
      without --no-compact in a subprocess; each must exit 0 and write a PNG;
  13. v5 (fspt_tpu_torch/scripts): the captured bounce-0 launch of the
-     round-5 studies; packet_traverse5 (csrc/walk5.cu) at its defaults
-     against its plain version — nearest, any-hit and clipped runs bit-equal,
-     per-walk visits included — and its slots against traverse4's on the
-     same launch (equal up to coplanar ties); then the v4/v5 sweep of
+     round-5 studies; packet_traverse5 (csrc/walk5.cu, a program a thread
+     block cluster) at its defaults against its plain version — nearest,
+     any-hit and clipped runs bit-equal, per-walk visits included — and its
+     slots against traverse4's on the same launch (equal up to coplanar
+     ties); a [shape] line (substeps a program and per-walk visits with
+     p50/p99/max, the longest walk of a program against its mean, bursts and
+     drain bursts, the clusters the card holds at once, cycles a substep and
+     where the walk's warp 0 spends them, from the kernel's own count in its
+     measuring entry point) and a [versus] line against
+     the first design (csrc/walk5_v0.cu); then the v4/v5 sweep of
      perf_r5i.main(), walk5's launch count read around it;
  14. dense MT: csrc/dense_mt.cu against its plain version, bit-equal, on
      stand-in tiles and on 64 tiles of captured rays, T = 64 and 128; then
-     the two-level study perf_r5_treelet.main(), its launch count read;
+     the two-level study perf_r5_treelet.main(), its launch count read, and
+     a [versus] line against the first design (csrc/dense_mt_v0.cu) at
+     stage E (T=64, the study's tile count), both timed on the device alone
+     (the launches wait behind a sleep kernel: one is shorter than its
+     wrapper's host time, which `wrapper_ms` shows);
  15. micro: csrc/micro.cu against its plain version at k=64 for all eight
      variants, bit-equal, `leaf` and `leaf2` also at k=512, and `full` and
      `leaf4` at K=4096, the shape perf_r5d.main() launches, once each (the
@@ -114,15 +124,19 @@ def say(phase, **kv):
           flush=True)
 
 
-def cuda_ms(fn, reps, warmup=True):
+def cuda_ms(fn, reps, warmup=True, queued=False):
     """Mean device time of fn() over `reps` runs, after one warm-up run
-    unless told otherwise."""
+    unless told otherwise.  With `queued` the runs wait in the stream behind
+    a ~25 ms sleep kernel, so that a launch shorter than the host's time to
+    issue it through its wrapper is timed on the device alone."""
     import torch
     if warmup:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -172,10 +186,10 @@ def compare(name, hit, ref, fields=("t", "slot", "u", "v", "visits")):
                for f in ("t", "u", "v"))
 
 
-def versus(label, old, new, reps=20):
+def versus(label, old, new, reps=20, queued=False):
     """The first design against the current kernel on one launch, timed in
     turns (old, new, new, old); returns (old ms, new ms)."""
-    t = [cuda_ms(f, reps) for f in (old, new, new, old)]
+    t = [cuda_ms(f, reps, queued=queued) for f in (old, new, new, old)]
     old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     say("versus", launch=label, old_ms=f"{old_ms:.4f}",
         new_ms=f"{new_ms:.4f}", speedup=f"{old_ms / new_ms:.2f}",
@@ -319,6 +333,65 @@ def shape_walk1(label, hit, counts, bound, ms, block_ms, mhz):
         share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
 
 
+def shape_walk5(label, hit, counts, bound, ms, args, kw, mhz):
+    """The schedule of a walk5 launch, from the kernel's own count
+    (ops/_versus.py, `fspt_walk5_stats`, whose hits must equal the
+    launch's): substeps a program, per-walk visits and each program's
+    longest walk against its mean, bursts and drain bursts, the clusters the
+    card holds at once and the blocks an SM, the cycles a substep (a
+    program's cycles over its substeps: the vote and the walks' waits
+    included) and where a substep's cycles go in the walk's warp 0 (each
+    phase's share, summed over the walks' substeps that had work)."""
+    import torch
+    from fspt_tpu_torch.ops._versus import (WALK5_PHASES, WALK5_STATS,
+                                            walk5_launcher, walk5_occupancy)
+    from fspt_tpu_torch.scripts.traverse5_proto import (LANES, WALKS,
+                                                        walk5_geometry)
+    g = walk5_geometry(hit.visits.numel())
+    stats = torch.zeros((g["blocks"], len(WALK5_STATS)), dtype=torch.int32,
+                        device=hit.t.device)
+    same_hits(f"{label} stats", walk5_launcher("walk5", args, kw, stats)(),
+              hit)
+    s = dict(zip(WALK5_STATS, stats[::WALKS].T.double()))
+    busy = stats.double().sum(0)
+    worked = busy[WALK5_STATS.index("worked")].item()
+    phases = {f"{k}_cycles_per_worked_substep":
+              f"{busy[WALK5_STATS.index(k)].item() / worked:.0f}"
+              for k in WALK5_PHASES}
+    walks = hit.visits[::LANES]
+    # a program's walks (the pad walks of the last one left out)
+    per = torch.cat([walks, walks.new_zeros(g["pad_blocks"])]).reshape(
+        -1, WALKS).double()
+    real = torch.cat([torch.ones_like(walks), walks.new_zeros(
+        g["pad_blocks"])]).reshape(-1, WALKS).double()
+    longest = per.max(1).values / (per.sum(1) / real.sum(1))
+    q = lambda x: [f"{v:.0f}" for v in torch.quantile(
+        x.double(), torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                 device=x.device)).tolist()] + [
+        f"{x.max().item():.0f}"]
+    cps = s["cycles"] / s["substeps"]
+    clusters, per_sm = walk5_occupancy(kw)
+    say("shape", launch=label, lanes=hit.visits.numel(),
+        programs=g["programs"], walks=walks.numel(),
+        substeps_p50_p99_max=",".join(q(s["substeps"])),
+        walk_visits_p50_p99_max=",".join(q(walks)),
+        walk_visits_mean=f"{walks.double().mean().item():.2f}",
+        node_walk_visits=counts["node"] // LANES,
+        leaf_walk_visits=counts["leaf"] // LANES, **tested(counts),
+        longest_walk_over_mean=f"{longest.mean().item():.3f}",
+        bursts_mean=f"{s['bursts'].mean().item():.2f}",
+        bursts_max=int(s["bursts"].max()),
+        drain_bursts=int(s["drain_bursts"].sum()),
+        idle_drain_bursts=int(s["idle_drain_bursts"].sum()),
+        active_clusters=clusters, blocks_per_sm=per_sm,
+        cycles_per_substep_p50=f"{cps.median().item():.0f}",
+        worked_substeps_per_walk=f"{worked / g['blocks']:.2f}", **phases,
+        launch_cycles_per_longest_program_substep=(
+            f"{ms * 1e-3 * mhz * 1e6 / s['substeps'].max().item():.0f}"),
+        sm_mhz=mhz, **bound_fields(bound),
+        share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
+
+
 def ptxas_summary(log):
     """One line per kernel entry of a `ptxas -v` log: template arguments,
     registers, spill stores/loads and stack frame."""
@@ -330,7 +403,8 @@ def ptxas_summary(log):
             walk = re.search(r"walk_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
                              name)
             w4 = re.search(r"walk4_kernelILi(\d+)ELb(\d)E", name)
-            w5 = re.search(r"walk5_kernelILi(\d+)ELb(\d)E", name)
+            w5 = re.search(r"walk5_kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?",
+                           name)
             one = re.search(r"(dense_mt|micro)_kernelILi(\d+)E", name)
             w1 = re.search(r"walk1_kernelILb(\d)E", name)
             part = re.search(r"\d+(chain|leaf|fetch|leaf_begin|leaf_end)"
@@ -344,7 +418,8 @@ def ptxas_summary(log):
                                    f"any={w4.group(2)}>"}
             elif w5:
                 entry = {"kernel": f"walk5<width={w5.group(1)},"
-                                   f"any={w5.group(2)}>"}
+                                   f"any={w5.group(2)}"
+                                   f"{',stats=' + w5.group(3) if w5.group(3) else ''}>"}
             elif w1:
                 entry = {"kernel": f"walk1<any={w1.group(1)}>"}
             elif one:
@@ -513,7 +588,8 @@ def main(kernels_only=False):
     from fspt_tpu_torch.scripts.perf_r5d import load_micro
     from fspt_tpu_torch.scripts.traverse5_proto import load_walk5
     sources = ("traverse4", "walk", "walk1", "walk5", "dense_mt", "micro",
-               "traverse4_v0", "walk_v0", "micro_v0", "walk_divide")
+               "traverse4_v0", "walk_v0", "walk5_v0", "dense_mt_v0",
+               "micro_v0", "walk_divide")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for load in (load_traverse4, load_walk, load_walk1, load_walk5,
@@ -543,9 +619,12 @@ def main(kernels_only=False):
                                               packet_traverse3_reference)
     from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
                                               packet_traverse4_reference)
-    from fspt_tpu_torch.ops._versus import (TRAVERSE4_SOURCES, WALK1_DESIGNS,
-                                            WALK_SOURCES, micro_launcher,
-                                            traverse4_launcher, walk_launcher)
+    from fspt_tpu_torch.ops._versus import (DENSE_MT_SOURCES,
+                                            TRAVERSE4_SOURCES, WALK1_DESIGNS,
+                                            WALK5_SOURCES, WALK_SOURCES,
+                                            dense_mt_launcher, micro_launcher,
+                                            traverse4_launcher, walk5_launcher,
+                                            walk_launcher)
     from fspt_tpu_torch.testing import (icosphere_obj,
                                         make_bunny_standin_scene,
                                         make_test_scene)
@@ -869,10 +948,11 @@ def main(kernels_only=False):
                              "kernel's visits")
     bounds[("walk5", "bounce0")] = launch_bound(
         counts, so.x.shape[0], 8, meta.leaf_size, table_rows, group=128)
-    say("shape", launch="walk5 bounce0", lanes=so.x.shape[0],
-        node_walk_visits=counts["node"] // 128,
-        leaf_walk_visits=counts["leaf"] // 128, **tested(counts),
-        **bound_fields(bounds[("walk5", "bounce0")]))
+    shape_walk5("walk5 bounce0", hit5, counts, bounds[("walk5", "bounce0")],
+                ms, launch, v5_kw, mhz)
+    old, new = (walk5_launcher(src, launch, v5_kw) for src in WALK5_SOURCES)
+    same_hits("walk5 bounce0", old(), new())
+    earlier[("walk5", "bounce0")], _ = versus("walk5 bounce0", old, new, 10)
     hit4 = packet_traverse4(*launch, **v5_kw)
     same = hit5.slot == hit4.slot
     tie = torch.isclose(hit5.t, hit4.t, rtol=1e-5, atol=1e-6)
@@ -938,21 +1018,34 @@ def main(kernels_only=False):
     n_tiles = tre[64]["n_tiles"]
     tl, rays = perf_r5_treelet.stand_in_tiles(n_tiles,
                                               leaves.shape[0] // 8, dev)
-    ms = cuda_ms(lambda: launch_dense_mt(tl, leaves, rays, 64), 10)
+    # (a launch of stage E is shorter than its wrapper's host time: queued)
+    ms = cuda_ms(lambda: launch_dense_mt(tl, leaves, rays, 64), 10,
+                 queued=True)
+    wrapper_ms = cuda_ms(lambda: launch_dense_mt(tl, leaves, rays, 64), 10)
     plain_ms = cuda_ms(lambda: perf_r5_treelet.dense_mt_reference(
         tl, leaves, rays, 64), 1)
     rows[("dense_mt", "stage_e")] = (ms, plain_ms)
+    old, new = (dense_mt_launcher(src, tl, leaves, rays, 64)
+                for src in DENSE_MT_SOURCES)
+    for a_, b_ in zip(old(), new()):
+        if not torch.equal(a_, b_):
+            raise AssertionError("dense_mt stage E: the two designs differ")
+    earlier[("dense_mt", "stage_e")], _ = versus(
+        f"dense_mt stage_e T=64 tiles={n_tiles}", old, new, queued=True)
     # a tile's 1,024 lanes each test the real triangles of the treelet's 64
     # slots (8 leaf rows)
     tile_rows = leaves[tl.long() * 8 + torch.arange(8, device=dev)]
     tile_tris = int(real_triangles(tile_rows, 8).sum())
+    tile_slots = int(perf_r5_treelet.tested_slots(tile_rows).sum())
     bounds[("dense_mt", "stage_e")] = traversal_bound(
         n_tiles * 1024, 8, 8, leaves.shape[0], 0, n_tiles * 1024 * 8,
         tri_tests=tile_tris * 1024, group=1024, out_planes=2)
     say("treelet", dense_launches=dense_launches, T=64, tiles=n_tiles,
         triangles_per_tile=f"{tile_tris / n_tiles:.2f}",
+        slots_tested_per_tile=f"{tile_slots / n_tiles:.2f}",
         **bound_fields(bounds[("dense_mt", "stage_e")]),
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        ms=f"{ms:.4f}", wrapper_ms=f"{wrapper_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}",
         verdicts=",".join("GO" if tre[T]["go"] else "NO-GO"
                           for T in perf_r5_treelet.TREELETS),
         card=repr(smi))
@@ -1065,7 +1158,8 @@ def main(kernels_only=False):
                 "launches_per_step": launches,
                 "max_abs_err": max_err.get(name, 0.0), "launch": launch,
                 "ms": ms, "plain_ms": plain, "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "library_ms": None}
+                "bound_by": b["bound_by"], "library_ms": None,
+                "earlier_ms": earlier[(name, launch)]}
 
     per_step = lambda c: integrator.traversal_launches(c, n, c.batch_spp)
     print(smi, flush=True)
@@ -1083,7 +1177,6 @@ def main(kernels_only=False):
                   "scripts/perf_r5_treelet.py:94", dense_launches),
         {**study_row("micro", "full", "fspt_tpu_torch/csrc/micro.cu",
                      "scripts/perf_r5d.py:42", micro_launches),
-         "earlier_ms": earlier[("micro", "full")],
          "leaf4_ms": rows[("micro", "leaf4")][0],
          "leaf4_plain_ms": rows[("micro", "leaf4")][1],
          "leaf4_bound_ms": bounds[("micro", "leaf4")]["bound_ms"],

@@ -5,7 +5,7 @@
 // this one stays buildable so that a measurement can time the two in one
 // process (ops/_versus.py `micro_launcher`, nothing else loads it): it reads
 // what one SM's issue rate makes of eight walks' substeps, which is what a
-// substep of csrc/walk5.cu's one-block programs costs.
+// substep of the one-block programs of csrc/walk5_v0.cu costs.
 //
 // Replaces the TPU kernel scripts/perf_r5d.py `micro_kernel` (launched by
 // that script's `main`, grid (1,)).  It measures what one substep of the

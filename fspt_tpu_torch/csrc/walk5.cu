@@ -1,414 +1,514 @@
-// v5 mixed multi-pop BVH traversal: one 1024-thread block per program of
-// 8 lockstep walks of 128 rays, one ray per thread.
+// v5 mixed multi-pop BVH traversal: a program of 8 walks of 128 rays as a
+// thread block cluster of 8 blocks, a walk a 128-thread block.
 //
 // Replaces the TPU kernel scripts/traverse5_proto.py `_walk5_kernel`
 // (launched by `packet_traverse5`), a round-5 prototype measured NO-GO on the
 // TPU.  That kernel is defined by its schedule, and the schedule sets
 // `visits`: per program a burst vote (pure drain or mixed), `unroll` or
 // `drain_unroll` substeps per burst, npop node units (cur plus pre-pops) and
-// lpop drain units per mixed substep, drain selections taken from the
-// queue at substep entry, node wants decided on the entry best t, pushes
-// and LIFO leaf appends unit npop-1 down to 0, and only then the drain
-// units' Moller-Trumbore.  A per-thread walk (traverse4.cu) cannot stand in,
-// so this kernel keeps the TPU's walk structure: a walk is 4 warps, a
-// program is a block, all 8 walks step together.
+// lpop drain units per mixed substep, drain selections taken from the queue
+// at substep entry, node wants decided on the entry best t, pushes and LIFO
+// leaf appends unit npop-1 down to 0, and only then the drain units'
+// Moller-Trumbore.  A per-thread walk (traverse4.cu) cannot stand in.
 //
 // What it computes (contract of fspt_tpu_torch/scripts/traverse5_proto.py,
-// whose `packet_traverse5_reference` is the plain PyTorch version and
-// follows this order and float arithmetic operation for operation, so the
-// two agree bit for bit):
-//   * block b holds rays [b*1024, (b+1)*1024); threads past n hold the JAX
-//     kernel's pad rays (origin 1e9, direction (0,1,0), tmax 0), which enter
-//     the sign sums and votes but write nothing;
+// whose `packet_traverse5_reference` is the plain PyTorch version; the two
+// agree bit for bit):
+//   * program g holds rays [g*1024, (g+1)*1024), walk w of it the 128 rays
+//     from g*1024 + w*128; threads past n hold the JAX kernel's pad rays
+//     (origin 1e9, direction (0,1,0), tmax 0), which enter the sign sums,
+//     the walks and the votes but write nothing;
 //   * walk w's majority signs are its 128 directions summed by pairwise
 //     halving, s[i] += s[i+h] for h = 64 .. 1;
 //   * a child is wanted by a walk iff some lane's slab test passes
 //     ((tmax >= tmin) & (tmax > 0) & (tmin < entry bt)) and its link is
-//     valid (> -1e8): a warp __reduce_or_sync, then an OR over the walk's 4
-//     warps in shared memory;
-//   * one thread per walk makes the pushes and appends in the JAX order;
-//     every thread reads the result from shared memory after a barrier, so
-//     control flow stays uniform across the block;
-//   * a push past `stack_depth` or an append past `qcap` bumps error[0] and
-//     ends the program; a program that stops at the max_steps backstop
-//     (8 * (table rows + 64) visits per walk) with work left bumps
-//     error[1]: the wrapper raises on either after a synchronise.  The JAX
-//     kernel drops the write, or ends with wrong hits, silently.
-// Built with --fmad=false, like traverse4.cu and walk.cu.
+//     valid (> -1e8);
+//   * a push past `stack_depth` bumps error[0] and ends the program; a
+//     program that stops at the max_steps backstop (8 * (table rows + 64)
+//     visits per walk) with work left bumps error[1]: the wrapper raises on
+//     either after a synchronise.  The JAX kernel drops the write, or ends
+//     with wrong hits, silently.  A leaf append cannot pass `qcap`: the
+//     burst vote drains before a mixed burst could, given
+//     qcap >= tree_width * unroll * npop, which the entry point requires
+//     (below it every burst would drain an empty queue and the program would
+//     never end).
+// The ray tests are csrc/walk_common.cuh's (`box_tests` picks the near and
+// far slab planes by the ray's sign, which equals the plain version's
+// fminf/fmaxf on node rows, where lo <= hi; `leaf_tests` is the plain
+// version's Moller-Trumbore in its order, two reciprocals side by side, and
+// leaves out a leaf's trailing padding slots, which can never be hit).
+// Built with --fmad=false, like every traversal kernel.
 //
-// What bounds it on an H100: every substep is a chain of dependent steps
-// separated by block barriers (3 per mixed substep, 2 per drain substep, one
-// more for any-hit): fetch npop+lpop rows per walk from L2 (the ~9.4 MB
-// bench tables stay resident in the 50 MB L2), vote, push on one thread,
-// test.  A block is one program, so its time is its substep count times
-// that latency chain, and the union tax of a 128-ray walk applies as in
-// walk.cu.  The design issues all of a substep's row loads before its
-// first barrier (npop+lpop independent 512-byte loads per walk, as the TPU
-// kernel issued its fetches before any compute) and keeps the rows in
-// shared memory.  Making it fast (cp.async prefetch of the next units,
-// fewer barriers) is later work.
+// What bounds it on an H100, and what the design does about it.  The floor
+// is float operations (every lane tests every row its walk visits), but the
+// time is a chain: a substep's rows are known only once the last substep's
+// pushes are.  The first design (csrc/walk5_v0.cu) ran a program as one
+// 1,024-thread block whose 8 walks stepped together, three block barriers a
+// substep over 1,024 threads, a walk that had finished waiting at every
+// barrier of the longest one; csrc/micro_v0.cu priced that shape at ~5,350
+// ns a substep against ~750 for a walk on SMs of its own.  But the JAX
+// semantics tie the 8 walks together only at burst boundaries (the vote, and
+// the loop's end); inside a burst a walk's substeps touch its own state
+// alone.  So here:
+//   * a walk is a 128-thread block, and its substeps meet only at its own
+//     barriers: one after the rows land, one after the votes of the node
+//     units (none in a drain substep; one more for any-hit);
+//   * warp 0 keeps the walk's state (cur, ptr, qlen, visits, the stack and
+//     the LIFO queue, all its lanes alike), picks the next substep's units,
+//     and fetches their rows as 16-byte asynchronous copies into the next of
+//     two banks of shared rows while the drain units' tests of this substep
+//     run; its pushes and appends are a ballot and a popc prefix over the
+//     node units' children (32 / tree_width units a pass), its pre-pops and
+//     drain selections a shared load a lane, all in the plain version's
+//     order;
+//   * at a burst boundary every block stores one word (near-full queue,
+//     alive, queued leaves, work below the backstop, abort) into every block
+//     of the cluster (walk_common.cuh `ClusterVoteOf`: asynchronous stores
+//     counted on the receiver's mbarrier) and all compute the same drain and
+//     keep decisions from the 8 words: the only traffic between walks;
+//   * a parked walk with an empty queue is done for good (the plain
+//     version's substeps leave it as it is), so its block leaves the burst at
+//     the first substep with nothing to do, and joins every vote until its
+//     cluster stops.
+// On an NVIDIA H100 80GB HBM3 at 700 W, on the captured bounce-0 launch of
+// the studies (342 programs; chip_smoke.py's [shape] and [versus] lines):
+// 2.27 -> 1.10 ms against the first design, ~10% of the bound.  64 registers hold the card to 8
+// blocks an SM and 124 clusters at once; a substep of the median program
+// costs ~8,700 cycles, ~5,700 when the block has its SM to itself, so the
+// SM's issue rate shared by 8 walks sets it, and a walk waits at the burst
+// votes for its program's longest walk (1.58x the mean) as long as it works.
+// Fewer blocks an SM, more (with spills), skipping invalid children one by
+// one, the two drain units' tests side by side and the pushes a pass a unit
+// all measured equal or slower (fspt_tpu_torch/scripts/perf_walk5_forms.py).
 
-#include <climits>
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include "walk_common.cuh"   // the ray tests, copy16, the cluster vote
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRow = 128;        // floats per packed row (ops/packing.py)
-constexpr int kWalks = 8;
-constexpr int kLanes = 128;
-constexpr int kBlock = kWalks * kLanes;
-constexpr int kMaxUnits = 8;     // npop + lpop; MAX_UNITS in traverse5_proto
-constexpr int kStackCap = 1024;  // STACK_CAP in traverse5_proto.py
-constexpr int kQueueCap = 1024;  // QCAP_CAP in traverse5_proto.py
-constexpr int kSentinel = INT_MIN;
+constexpr int kWalks = 8;          // blocks a cluster: WALKS in traverse5_proto
+constexpr int kLanes = 128;        // threads a block: LANES
+constexpr int kProgram = kWalks * kLanes;
+constexpr int kMaxUnits = 8;       // npop + lpop: MAX_UNITS
+constexpr int kStack5Cap = 1024;   // stack_depth: STACK_CAP
+constexpr int kQueueCap = 1024;    // qcap: QCAP_CAP
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float safe_inv(float d) {
-  const float s = fabsf(d) < 1e-20f ? (d < 0.0f ? -1e-20f : 1e-20f) : d;
-  return 1.0f / s;
-}
+// What the measuring entry point writes, kStats ints a block: its program's
+// bursts, drain bursts, drain bursts voted with no walk alive and leaves
+// queued and substeps (the bursts' lengths summed), then the block's clock
+// cycles from its start to its end, its substeps that had work, and the
+// cycles its thread 0 (warp 0, which keeps the walk) spent in each phase.
+enum Phase { kVote, kWait, kBox, kVotes, kPush, kPlan, kMt, kPhases };
+constexpr int kStats = 6 + kPhases;
 
-struct Rays {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *tmax;
-};
-
-struct Hits {
-  float* t;
-  int* slot;
-  float* u;
-  float* v;
-  int* visits;
-};
+// the burst vote's word, one a walk
+constexpr unsigned kNearFull = 1u;     // qlen + tree_width*unroll*npop > qcap
+constexpr unsigned kAlive = 2u;        // a node to visit
+constexpr unsigned kQueued = 4u;       // leaves queued
+constexpr unsigned kKeep = 8u;         // work left, visits below max_steps
+constexpr unsigned kAbort = 16u;       // a push overflowed the stack
 
 struct Params {
-  int n, node_rows, leaf_size, stack_depth, qcap, unroll, drain_unroll, npop,
-      lpop, max_steps;
+  int n, leaf_size, stack_depth, qcap, unroll, drain_unroll, npop, lpop,
+      max_steps;
 };
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+// What a substep reads, written by warp 0 before its first barrier: which
+// units have a row (node unit u in row slot u of the bank, drain unit u in
+// slot first_drain + u) and the drain units' leaf ordinals.
+struct Sub {
+  unsigned nodes, has;
+  int ord[kMaxUnits];
 };
 
-struct Best {
-  float t;
-  int slot;
-  float u, v;
+// warp 0's own record of the substep it planned
+struct Plan {
+  int ptr;          // the pointer after the pre-pops
+  int taken;        // leaves the drain units take from the queue
+  bool parked;
+  unsigned nodes;
 };
 
-// Moller-Trumbore of this thread's ray against the leaf_size triangles of
-// row r (leaf ordinal `leaf`), strict t < best t.
-__device__ __forceinline__ void leaf_mt(const float* r, int leaf,
-                                        int leaf_size, const Ray& a,
-                                        Best& b) {
-  const int slot_base = leaf * leaf_size;
-  for (int j = 0; j < leaf_size; ++j) {
-    const float* c = r + 9 * j;
-    const float px = a.dy * c[8] - a.dz * c[7];
-    const float py = a.dz * c[6] - a.dx * c[8];
-    const float pz = a.dx * c[7] - a.dy * c[6];
-    const float det = c[3] * px + c[4] * py + c[5] * pz;
-    const float inv = 1.0f / (fabsf(det) < 1e-6f ? 1.0f : det);
-    const float tx = a.ox - c[0];
-    const float ty = a.oy - c[1];
-    const float tz = a.oz - c[2];
-    const float uu = (tx * px + ty * py + tz * pz) * inv;
-    const float qx = ty * c[5] - tz * c[4];
-    const float qy = tz * c[3] - tx * c[5];
-    const float qz = tx * c[4] - ty * c[3];
-    const float ww = (a.dx * qx + a.dy * qy + a.dz * qz) * inv;
-    const float tt = (c[6] * qx + c[7] * qy + c[8] * qz) * inv;
-    const bool ok = (fabsf(det) >= 1e-6f) & (uu >= 0.0f) & (uu <= 1.0f) &
-                    (ww >= 0.0f) & (uu + ww <= 1.0f) & (tt > 1e-6f) &
-                    (tt < b.t);
-    if (ok) {
-      b.t = tt;
-      b.slot = slot_base + j;
-      b.u = uu;
-      b.v = ww;
-    }
-  }
-}
-
-// Shared walk state.  Every field is written by its walk's leader thread
-// and read by all after a barrier.
-struct WalkState {
-  int cur[kWalks], ptr[kWalks], qlen[kWalks], vis[kWalks];
-  unsigned votes[kMaxUnits][kWalks][4];
-  unsigned done[kWalks][4];
-  int abort;
-};
-
-template <int TW, bool ANY_HIT>
-__global__ void __launch_bounds__(kBlock)
+template <int TW, bool ANY_HIT, bool STATS>
+__global__ void __launch_bounds__(kLanes, 8)
 walk5_kernel(const float* __restrict__ nodes,
-             const float* __restrict__ leaves, Rays rays, Params p,
-             Hits hits, int* __restrict__ error) {
-  extern __shared__ float smem[];
-  __shared__ WalkState ws;
-  const int units = p.npop + p.lpop;
-  const int panel_floats = max(units * kWalks * kRow, 3 * kBlock);
-  float* panel = smem;                          // also the sign sums at entry
-  int* stack = reinterpret_cast<int*>(smem + panel_floats);  // [8][depth]
-  int* queue = stack + kWalks * p.stack_depth;                // [8][qcap]
-
-  const int tid = threadIdx.x;
-  const int w = tid >> 7, lane = tid & (kLanes - 1);
-  const int wq = (tid >> 5) & 3;                // warp within the walk
-  const int i = blockIdx.x * kBlock + tid;
-  const bool real = i < p.n;
-  Ray a;
-  a.ox = real ? rays.ox[i] : 1.0e9f;
-  a.oy = real ? rays.oy[i] : 1.0e9f;
-  a.oz = real ? rays.oz[i] : 1.0e9f;
-  a.dx = real ? rays.dx[i] : 0.0f;
-  a.dy = real ? rays.dy[i] : 1.0f;
-  a.dz = real ? rays.dz[i] : 0.0f;
-  a.ix = safe_inv(a.dx);
-  a.iy = safe_inv(a.dy);
-  a.iz = safe_inv(a.dz);
-  Best b{real ? rays.tmax[i] : 0.0f, -1, 0.0f, 0.0f};
-
-  // ---- per-walk majority signs, pairwise halving; zeroed stacks/queues --
-  panel[tid] = a.dx;
-  panel[kBlock + tid] = a.dy;
-  panel[2 * kBlock + tid] = a.dz;
-  for (int k = tid; k < kWalks * p.stack_depth; k += kBlock) stack[k] = 0;
-  for (int k = tid; k < kWalks * p.qcap; k += kBlock) queue[k] = 0;
-  __syncthreads();
-  if (tid < kWalks) {
-    stack[tid * p.stack_depth] = kSentinel;
-    ws.cur[tid] = 0;                           // the root
-    ws.ptr[tid] = 1;
-    ws.qlen[tid] = 0;
-    ws.vis[tid] = 0;
-  }
-  if (tid == 0) ws.abort = 0;
-#pragma unroll
-  for (int h = kLanes / 2; h > 0; h >>= 1) {
-    if (lane < h) {
-      panel[tid] = panel[tid] + panel[tid + h];
-      panel[kBlock + tid] = panel[kBlock + tid] + panel[kBlock + tid + h];
-      panel[2 * kBlock + tid] =
-          panel[2 * kBlock + tid] + panel[2 * kBlock + tid + h];
-    }
-    __syncthreads();
-  }
-  const bool sx = panel[w * kLanes] >= 0.0f;
-  const bool sy = panel[kBlock + w * kLanes] >= 0.0f;
-  const bool sz = panel[2 * kBlock + w * kLanes] >= 0.0f;
-  __syncthreads();                              // sums read: panel is free
-
-  int* my_stack = stack + w * p.stack_depth;
-  int* my_queue = queue + w * p.qcap;
+             const float* __restrict__ leaves, Rays rays, Params p, Hits hits,
+             int* __restrict__ error, int* __restrict__ stats) {
+  __shared__ __align__(16) float panel[2][kMaxUnits][kRow];
+  __shared__ float sums[3][kLanes];
+  __shared__ Sub sub[2];
+  __shared__ unsigned votes[kMaxUnits][kLanes / 32];
+  __shared__ unsigned done[kLanes / 32];
+  __shared__ int walk_visits;
+  __shared__ VoteBoardOf<kWalks> board;
+  extern __shared__ int rows5[];     // the stack [stack_depth], the queue [qcap]
+  int* stack = rows5;
+  int* queue = rows5 + p.stack_depth;
   const int D = p.stack_depth, Q = p.qcap;
 
-  // drain selections of the walk's entry queue: k units, rows fetched into
-  // panel rows (off + u) * 8 + w
-  int has[kMaxUnits], ords[kMaxUnits];
-  auto drain_select_fetch = [&](int qlen, int k, int off) {
-    for (int u = 0; u < k; ++u) {
-      has[u] = qlen > u;
-      const int qtop = min(max(qlen - 1 - u, 0), Q - 1);
-      ords[u] = has[u] ? max(-my_queue[qtop] - 1, 0) : 0;
-      const float* src = has[u] ? leaves + static_cast<size_t>(ords[u]) * kRow
-                                : nodes;
-      panel[((off + u) * kWalks + w) * kRow + lane] = __ldg(src + lane);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());   // the walk
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool keeper = warp == 0;     // keeps the walk's state
+  const int i = (blockIdx.x / kWalks) * kProgram + rank * kLanes + tid;
+  const bool real = i < p.n;
+  const bool leader = rank == 0 && tid == 0;
+  // the measuring entry point's clock, in thread 0: lap(k) adds the cycles
+  // since the last lap to phase k
+  long long t0 = 0, tick = 0;
+  int ph[kPhases] = {};
+  auto lap = [&](int k) {
+    if (STATS && tid == 0) {
+      const long long now = clock64();
+      ph[k] += static_cast<int>(now - tick);
+      tick = now;
     }
-  };
-  auto drain_mt = [&](int k, int off) {
-    for (int u = 0; u < k; ++u)
-      if (has[u])
-        leaf_mt(panel + ((off + u) * kWalks + w) * kRow, ords[u],
-                p.leaf_size, a, b);
-  };
-  // any-hit: a walk whose lanes all have a hit (or tmax <= 0) ends; then
-  // the barrier that closes the substep
-  auto finish = [&]() {
-    if (ANY_HIT) {
-      const unsigned d = __all_sync(0xffffffffu, (b.slot >= 0) | (b.t <= 0.0f));
-      if ((tid & 31) == 0) ws.done[w][wq] = d;
-      __syncthreads();
-      if (lane == 0 &&
-          (ws.done[w][0] & ws.done[w][1] & ws.done[w][2] & ws.done[w][3])) {
-        ws.cur[w] = kSentinel;
-        ws.ptr[w] = 0;
-        ws.qlen[w] = 0;
-      }
-    }
-    __syncthreads();
   };
 
-  auto mixed_substep = [&]() {
-    const int cur = ws.cur[w], ptr = ws.ptr[w], qlen = ws.qlen[w];
-    const bool parked = cur == kSentinel;
-    drain_select_fetch(qlen, p.lpop, p.npop);
-    const int taken = min(qlen, p.lpop);
-    int unit[kMaxUnits];
-    unit[0] = cur;
-    int p0 = ptr;
-    for (int u = 1; u < p.npop; ++u) {
-      const int pop_at = min(max(p0 - 1, 0), D - 1);
-      const int popped =
-          (p0 >= 2 && !parked) ? my_stack[pop_at] : kSentinel;
-      if (popped != kSentinel) --p0;
-      unit[u] = popped;
-    }
-    for (int u = 0; u < p.npop; ++u) {
-      const int row = unit[u] != kSentinel ? max(unit[u], 0) : 0;
-      panel[(u * kWalks + w) * kRow + lane] =
-          __ldg(nodes + static_cast<size_t>(row) * kRow + lane);
-    }
-    __syncthreads();
+  Ray q;
+  q.ox = real ? rays.ox[i] : 1.0e9f;
+  q.oy = real ? rays.oy[i] : 1.0e9f;
+  q.oz = real ? rays.oz[i] : 1.0e9f;
+  q.dx = real ? rays.dx[i] : 0.0f;
+  q.dy = real ? rays.dy[i] : 1.0f;
+  q.dz = real ? rays.dz[i] : 0.0f;
+  q.bt = real ? rays.tmax[i] : 0.0f;
+  q.ix = safe_inv(q.dx), q.iy = safe_inv(q.dy), q.iz = safe_inv(q.dz);
+  q.bs = -1;
+  q.bu = 0.0f, q.bv = 0.0f;
+  const Planes planes = planes_of<TW>(q);
 
-    // ---- each node unit's child wants, on the entry best t ----------------
-    for (int u = 0; u < p.npop; ++u) {
-      const float* r = panel + (u * kWalks + w) * kRow;
-      unsigned mine = 0;
+  // ---- the walk's majority signs, pairwise halving; zeroed stack and queue
+  sums[0][tid] = q.dx;
+  sums[1][tid] = q.dy;
+  sums[2][tid] = q.dz;
+  for (int k = tid; k < D + Q; k += kLanes) rows5[k] = 0;
+  __syncthreads();
+  if (tid == 0) stack[0] = kSentinel;
 #pragma unroll
-      for (int c = 0; c < TW; ++c) {
-        const float t1x = (r[c] - a.ox) * a.ix;
-        const float t2x = (r[3 * TW + c] - a.ox) * a.ix;
-        const float t1y = (r[TW + c] - a.oy) * a.iy;
-        const float t2y = (r[4 * TW + c] - a.oy) * a.iy;
-        const float t1z = (r[2 * TW + c] - a.oz) * a.iz;
-        const float t2z = (r[5 * TW + c] - a.oz) * a.iz;
-        const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                                 fminf(t1z, t2z));
-        const float tmx = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                                fmaxf(t1z, t2z));
-        const bool box = (tmx >= tmin) & (tmx > 0.0f) & (tmin < b.t);
-        mine |= static_cast<unsigned>(box) << c;
-      }
-      const unsigned wv = __reduce_or_sync(0xffffffffu, mine);
-      if ((tid & 31) == 0) ws.votes[u][w][wq] = wv;
+  for (int h = kLanes / 2; h > 0; h >>= 1) {
+    if (tid < h) {
+      sums[0][tid] = sums[0][tid] + sums[0][tid + h];
+      sums[1][tid] = sums[1][tid] + sums[1][tid + h];
+      sums[2][tid] = sums[2][tid] + sums[2][tid + h];
     }
     __syncthreads();
+  }
+  const bool sx = sums[0][0] >= 0.0f;
+  const bool sy = sums[1][0] >= 0.0f;
+  const bool sz = sums[2][0] >= 0.0f;
 
-    // ---- the walk's leader: pushes and appends, unit npop-1 down to 0 ----
+  ClusterVoteOf<kWalks> vote;
+  vote.init(&board, tid == 0, 1);
+  // every block of the cluster runs, its mbarriers set, before any stores
+  // into its shared memory
+  cluster.sync();
+  // lane r of warp 0 sends the walk's word to block r
+  if (keeper && lane < kWalks) vote.aim(&board, rank, lane);
+  if (STATS && tid == 0) t0 = tick = clock64();
+
+  // ---- warp 0: the walk's state, alike in all its lanes -------------------
+  int cur = 0, ptr = 1, qlen = 0, vis = 0;   // at the root; stack[0] sentinel
+  bool abort = false;
+  const int units = p.npop + p.lpop;
+
+  // The units of the substep that starts from the current state, lane u
+  // unit u, their rows copied into bank b (the copies land before the
+  // substep's first barrier).
+  auto plan = [&](bool drain, int b) {
+    Plan pl;
+    pl.parked = cur == kSentinel;
+    // node units: cur, then pre-pop u takes stack[ptr - u] while ptr - u >= 1
+    // (no live entry above the bottom is the sentinel)
+    int unit = kSentinel;
+    if (!drain && lane < p.npop) {
+      if (lane == 0)
+        unit = cur;
+      else if (!pl.parked && ptr - lane >= 1)
+        unit = stack[ptr - lane];
+    }
+    pl.nodes = __ballot_sync(kFull, unit != kSentinel);
+    pl.ptr = ptr - __popc(pl.nodes >> 1);
+    // drain units: the queue's top entries at substep entry
+    const int k = drain ? units : p.lpop, first = drain ? 0 : p.npop;
+    pl.taken = min(qlen, k);
+    int ord = 0;
+    if (lane < pl.taken) {
+      ord = max(-queue[qlen - 1 - lane] - 1, 0);
+      sub[b].ord[lane] = ord;
+    }
+    // every row: 16 bytes a lane
+    for (int u = 0; u < p.npop; ++u)
+      if ((pl.nodes >> u) & 1u)
+        copy16(&panel[b][u][4 * lane],
+               nodes + static_cast<size_t>(__shfl_sync(kFull, unit, u)) *
+                           kRow + 4 * lane, true);
+    for (int u = 0; u < pl.taken; ++u)
+      copy16(&panel[b][first + u][4 * lane],
+             leaves + static_cast<size_t>(__shfl_sync(kFull, ord, u)) *
+                          kRow + 4 * lane, true);
     if (lane == 0) {
-      int pp = p0, q = qlen - taken, top = kSentinel, nodes_seen = 0;
-      bool pushed = false, bad = false;
-      for (int u = p.npop - 1; u >= 0; --u) {
-        if (unit[u] == kSentinel) continue;
-        ++nodes_seen;
-        const float* r = panel + (u * kWalks + w) * kRow;
-        const unsigned want = ws.votes[u][w][0] | ws.votes[u][w][1] |
-                              ws.votes[u][w][2] | ws.votes[u][w][3];
+      sub[b].nodes = pl.nodes;
+      sub[b].has = (1u << pl.taken) - 1u;
+    }
+    return pl;
+  };
+
+  // Pushes and appends of the node units, unit npop-1 down to 0, children in
+  // the sign order (lane (k, j): the k-th unit of that order, its j-th
+  // child, 32 / TW units a pass); then the walk's next cur and ptr.  False
+  // on an overflow.
+  auto push = [&](const Plan& pl, int b) {
+    int pp = pl.ptr, qq = qlen - pl.taken, top = kSentinel;
+    bool pushed = false;
+    const unsigned below = (1u << lane) - 1u;
+    for (int k0 = 0; k0 < p.npop; k0 += 32 / TW) {
+      const int u = p.npop - 1 - (k0 + lane / TW), j = lane % TW;
+      int link = 0;
+      bool on = false;
+      if (u >= 0 && ((pl.nodes >> u) & 1u)) {
+        const float* r = panel[b][u];
+        const unsigned want = votes[u][0] | votes[u][1] | votes[u][2] |
+                              votes[u][3];
         const float axis = r[7 * TW];
         const bool fwd = axis == 0.0f ? sx : (axis == 1.0f ? sy : sz);
-        for (int j = 0; j < TW; ++j) {
-          const int c = fwd ? TW - 1 - j : j;
-          const float lf = r[6 * TW + c];
-          if (!((want >> c) & 1u) || !(lf > -1.0e8f)) continue;
-          const int link = static_cast<int>(lf);
-          if (link < 0) {
-            if (q >= Q) { bad = true; break; }
-            my_queue[q++] = link;
-          } else {
-            if (pp >= D) { bad = true; break; }
-            my_stack[pp++] = link;
-            top = link;
-            pushed = true;
-          }
-        }
-        if (bad) break;
+        const int c = fwd ? TW - 1 - j : j;
+        const float lf = r[6 * TW + c];
+        on = ((want >> c) & 1u) && lf > -1.0e8f;
+        if (on) link = static_cast<int>(lf);
       }
-      if (bad) {
-        atomicAdd(error, 1);
-        ws.abort = 1;
+      const unsigned pm = __ballot_sync(kFull, on && link >= 0);
+      const unsigned am = __ballot_sync(kFull, on && link < 0);
+      if (pp + __popc(pm) > D || qq + __popc(am) > Q) return false;
+      if ((pm >> lane) & 1u) stack[pp + __popc(pm & below)] = link;
+      if ((am >> lane) & 1u) queue[qq + __popc(am & below)] = link;
+      if (pm) {
+        top = __shfl_sync(kFull, link, 31 - __clz(pm));
+        pushed = true;
       }
-      int nptr = pp - 1;
-      int ncur = pushed ? top : my_stack[min(max(nptr, 0), D - 1)];
-      if (parked) ncur = kSentinel;
-      if (parked || ncur == kSentinel) nptr = 0;
-      ws.cur[w] = ncur;
-      ws.ptr[w] = nptr;
-      ws.qlen[w] = q;
-      ws.vis[w] += nodes_seen + taken;
+      pp += __popc(pm);
+      qq += __popc(am);
     }
-    // ---- then the drain units' MT, which updates best t --------------------
-    drain_mt(p.lpop, p.npop);
-    finish();
+    __syncwarp();                    // the pushes, for the lanes that read
+    int nptr = pp - 1;
+    int ncur = pushed ? top : stack[min(max(nptr, 0), D - 1)];
+    if (pl.parked) ncur = kSentinel;
+    if (pl.parked || ncur == kSentinel) nptr = 0;
+    cur = ncur;
+    ptr = nptr;
+    qlen = qq;
+    vis += __popc(pl.nodes) + pl.taken;
+    return true;
   };
 
-  auto drain_substep = [&]() {
-    const int qlen = ws.qlen[w];
-    const int k = units;
-    drain_select_fetch(qlen, k, 0);
-    __syncthreads();
-    drain_mt(k, 0);
-    if (lane == 0) {
-      const int taken = min(qlen, k);
-      ws.qlen[w] = qlen - taken;
-      ws.vis[w] += taken;
-    }
-    finish();
-  };
-
-  // ---- bursts until no walk has work below the backstop ------------------
+  // ---- bursts until no walk of the program has work below the backstop --
   const int push_bound = TW * p.unroll * p.npop;
+  int bank = 0;                      // alike in every thread
+  int bursts = 0, drains = 0, idle_drains = 0, substeps = 0, worked = 0;
+  unsigned any, all;
   while (true) {
-    int total_q = 0, max_q = 0, alive = 0;
-    for (int s = 0; s < kWalks; ++s) {
-      total_q += ws.qlen[s];
-      max_q = max(max_q, ws.qlen[s]);
-      alive += ws.cur[s] != kSentinel;
+    // the burst vote: the only words between the walks
+    if (keeper && lane < kWalks)
+      vote.send((qlen + push_bound > Q ? kNearFull : 0u) |
+                (cur != kSentinel ? kAlive : 0u) | (qlen > 0 ? kQueued : 0u) |
+                ((cur != kSentinel || qlen > 0) && vis < p.max_steps ? kKeep
+                                                                    : 0u) |
+                (abort ? kAbort : 0u));
+    vote.collect(&board, tid == 0, any, all);
+    lap(kVote);
+    if ((any & kAbort) || !(any & kKeep)) break;
+    const bool drain = (any & kNearFull) || (!(any & kAlive) && (any & kQueued));
+    const int reps = drain ? p.drain_unroll : p.unroll;
+    if (STATS) {
+      ++bursts;
+      drains += drain;
+      idle_drains += !(any & kAlive) && (any & kQueued);
+      substeps += reps;
     }
-    const bool drain = (max_q + push_bound > Q) || (alive == 0 && total_q > 0);
-    if (drain) {
-      for (int r = 0; r < p.drain_unroll && !ws.abort; ++r) drain_substep();
-    } else {
-      for (int r = 0; r < p.unroll && !ws.abort; ++r) mixed_substep();
+    Plan pl;
+    if (keeper) pl = plan(drain, bank);
+    lap(kPlan);
+    for (int r = 0; r < reps; ++r) {
+      if (keeper) copies_landed();
+      __syncthreads();               // the rows and sub[bank] are seen
+      lap(kWait);
+      const unsigned node_units = sub[bank].nodes, has = sub[bank].has;
+      if (!(node_units | has)) {     // parked, queue empty: done for good
+        bank ^= 1;
+        break;
+      }
+      if (STATS) ++worked;
+      const bool more = r + 1 < reps;
+      const int first_drain = drain ? 0 : p.npop;
+      Plan next;
+      if (!drain) {
+        // ---- each node unit's child wants, on the entry best t ----------
+        for (int u = 0; u < p.npop; ++u) {
+          if (!((node_units >> u) & 1u)) continue;
+          const unsigned m = __reduce_or_sync(
+              kFull, box_tests<TW>(q, planes, panel[bank][u]));
+          if (lane == 0) votes[u][warp] = m;
+        }
+        lap(kBox);
+        __syncthreads();             // the votes
+        lap(kVotes);
+      }
+      if (keeper) {
+        if (drain) {
+          qlen -= pl.taken;
+          vis += pl.taken;
+        } else if (!push(pl, bank)) {
+          // the program ends at the next vote; this walk does nothing more
+          if (lane == 0) atomicAdd(error, 1);
+          abort = true;
+          cur = kSentinel, ptr = 0, qlen = 0;
+        }
+        lap(kPush);
+        if (!ANY_HIT && more) next = plan(drain, bank ^ 1);
+        lap(kPlan);
+      }
+      // ---- then the drain units' Moller-Trumbore, which updates best t --
+      const int taken = __popc(has);
+      for (int u = 0; u < taken; ++u)
+        leaf_tests(q, panel[bank][first_drain + u], p.leaf_size,
+                   sub[bank].ord[u] * p.leaf_size, lane);
+      lap(kMt);
+      if (ANY_HIT) {
+        // the walk ends once all its lanes have a hit (or tmax <= 0)
+        const bool d = __all_sync(kFull, (q.bs >= 0) | (q.bt <= 0.0f));
+        if (lane == 0) done[warp] = d;
+        __syncthreads();
+        if (keeper) {
+          if (done[0] & done[1] & done[2] & done[3])
+            cur = kSentinel, ptr = 0, qlen = 0;
+          if (more) next = plan(drain, bank ^ 1);
+        }
+        lap(kPlan);
+      }
+      if (keeper && more) pl = next;
+      bank ^= 1;
     }
-    if (ws.abort) break;
-    bool keep = false;
-    for (int s = 0; s < kWalks; ++s)
-      keep |= (ws.cur[s] != kSentinel || ws.qlen[s] > 0) &&
-              ws.vis[s] < p.max_steps;
-    if (!keep) break;
-  }
-  if (tid == 0 && !ws.abort) {
-    bool left = false;
-    for (int s = 0; s < kWalks; ++s)
-      left |= ws.cur[s] != kSentinel || ws.qlen[s] > 0;
-    if (left) atomicAdd(error + 1, 1);
   }
 
+  if (keeper && lane == 0) walk_visits = vis;
+  __syncthreads();
   if (real) {
-    hits.t[i] = b.t;
-    hits.slot[i] = b.slot;
-    hits.u[i] = b.u;
-    hits.v[i] = b.v;
-    hits.visits[i] = ws.vis[w];
+    hits.t[i] = q.bt;
+    hits.slot[i] = q.bs;
+    hits.u[i] = q.bu;
+    hits.v[i] = q.bv;
+    hits.visits[i] = walk_visits;
   }
+  if (leader && !(any & kAbort) && (any & (kAlive | kQueued)))
+    atomicAdd(error + 1, 1);
+  if (STATS && tid == 0) {
+    int* s = stats + blockIdx.x * kStats;
+    s[0] = bursts, s[1] = drains, s[2] = idle_drains, s[3] = substeps;
+    s[4] = static_cast<int>(clock64() - t0), s[5] = worked;
+    for (int k = 0; k < kPhases; ++k) s[6 + k] = ph[k];
+  }
+  // no block leaves while another may still store into its shared memory
+  cluster.sync();
+}
+
+// the launch for n rays: whole programs, a cluster a program
+inline void geometry(int n, int* blocks, int* threads) {
+  *blocks = (n + kProgram - 1) / kProgram * kWalks;
+  *threads = kLanes;
+}
+
+inline size_t dynamic_smem(int stack_depth, int qcap) {
+  return static_cast<size_t>(stack_depth + qcap) * sizeof(int);
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, size_t smem, cudaStream_t s,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kLanes);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kWalks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int TW, bool ANY, bool STATS>
+int launch_one(const float* nodes, const float* leaves, const Rays& rays,
+               const Params& p, const Hits& hits, int* error, int* stats,
+               cudaStream_t stream) {
+  int blocks, threads;
+  geometry(p.n, &blocks, &threads);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      blocks, dynamic_smem(p.stack_depth, p.qcap), stream, attr);
+  // a launch that CUDA refuses (no room for the cluster) is an error
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, walk5_kernel<TW, ANY, STATS>,
+                                           nodes, leaves, rays, p, hits, error,
+                                           stats);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <bool STATS>
+int launch(const float* nodes, const float* leaves, int node_rows,
+           int leaf_rows, const float* ox, const float* oy, const float* oz,
+           const float* dx, const float* dy, const float* dz,
+           const float* tmax, int n, int leaf_size, int stack_depth, int qcap,
+           int unroll, int drain_unroll, int npop, int lpop, int tree_width,
+           int any_hit, float* t, int* slot, float* u, float* v, int* visits,
+           int* error, int* stats, void* stream) {
+  if (n < 0 || leaf_size < 1 || leaf_size * 9 > kRow || stack_depth < 1 ||
+      stack_depth > kStack5Cap || qcap > kQueueCap || npop < 1 || lpop < 0 ||
+      npop + lpop > kMaxUnits || unroll < 1 || drain_unroll < 1 ||
+      (tree_width != 8 && tree_width != 16) ||
+      qcap < tree_width * unroll * npop)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const Rays rays{ox, oy, oz, dx, dy, dz, tmax};
+  const Params p{n,     leaf_size, stack_depth, qcap,
+                 unroll, drain_unroll, npop, lpop,
+                 8 * (node_rows + leaf_rows + 64)};
+  const Hits hits{t, slot, u, v, visits};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tree_width == 8)
+    return any_hit
+               ? launch_one<8, true, STATS>(nodes, leaves, rays, p, hits,
+                                            error, stats, s)
+               : launch_one<8, false, STATS>(nodes, leaves, rays, p, hits,
+                                             error, stats, s);
+  return any_hit ? launch_one<16, true, STATS>(nodes, leaves, rays, p, hits,
+                                               error, stats, s)
+                 : launch_one<16, false, STATS>(nodes, leaves, rays, p, hits,
+                                                error, stats, s);
 }
 
 template <int TW, bool ANY>
-int launch_one(const float* nodes, const float* leaves, const Rays& rays,
-               const Params& p, const Hits& hits, int* error,
-               cudaStream_t stream) {
-  const int units = p.npop + p.lpop;
-  const size_t panel = static_cast<size_t>(
-      units * kWalks * kRow > 3 * kBlock ? units * kWalks * kRow : 3 * kBlock);
-  const size_t smem = panel * sizeof(float) +
-                      static_cast<size_t>(kWalks) *
-                          (p.stack_depth + p.qcap) * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      walk5_kernel<TW, ANY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+int occupancy_of(size_t smem, int* clusters, int* blocks_per_sm) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(kWalks, smem, 0, attr);
+  cudaError_t e = cudaOccupancyMaxActiveClusters(
+      clusters, walk5_kernel<TW, ANY, false>, &cfg);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.n + kBlock - 1) / kBlock);
-  walk5_kernel<TW, ANY><<<grid, kBlock, smem, stream>>>(nodes, leaves, rays,
-                                                         p, hits, error);
-  return static_cast<int>(cudaGetLastError());
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, walk5_kernel<TW, ANY, false>, kLanes, smem);
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` (asynchronously) and returns cudaGetLastError() of
-// the launch: 0 on success.  error: the int32 pair of ops/traverse.py ([0]
-// stack or queue overflows, [1] programs stopped by the backstop).
+// Launches on `stream` (asynchronously) and returns the launch's error: 0 on
+// success.  error: the int32 pair of ops/traverse.py ([0] stack overflows,
+// [1] programs stopped by the backstop).
 int fspt_walk5(const float* nodes, const float* leaves, int node_rows,
                int leaf_rows, const float* ox, const float* oy,
                const float* oz, const float* dx, const float* dy,
@@ -417,24 +517,47 @@ int fspt_walk5(const float* nodes, const float* leaves, int node_rows,
                int npop, int lpop, int tree_width, int any_hit, float* t,
                int* slot, float* u, float* v, int* visits, int* error,
                void* stream) {
-  if (n < 0 || leaf_size < 1 || leaf_size * 9 > kRow || stack_depth < 1 ||
-      stack_depth > kStackCap || qcap < 1 || qcap > kQueueCap || npop < 1 ||
-      lpop < 0 || npop + lpop > kMaxUnits || unroll < 1 || drain_unroll < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const Rays rays{ox, oy, oz, dx, dy, dz, tmax};
-  const Params p{n, node_rows, leaf_size, stack_depth, qcap, unroll,
-                 drain_unroll, npop, lpop, 8 * (node_rows + leaf_rows + 64)};
-  const Hits hits{t, slot, u, v, visits};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return launch<false>(nodes, leaves, node_rows, leaf_rows, ox, oy, oz, dx,
+                       dy, dz, tmax, n, leaf_size, stack_depth, qcap, unroll,
+                       drain_unroll, npop, lpop, tree_width, any_hit, t, slot,
+                       u, v, visits, error, nullptr, stream);
+}
+
+// fspt_walk5 that also writes kStats ints a block (see kStats above) into
+// `stats`, (blocks, kStats).  For measurements (ops/_versus.py); the same
+// hits to the bit.
+int fspt_walk5_stats(const float* nodes, const float* leaves, int node_rows,
+                     int leaf_rows, const float* ox, const float* oy,
+                     const float* oz, const float* dx, const float* dy,
+                     const float* dz, const float* tmax, int n, int leaf_size,
+                     int stack_depth, int qcap, int unroll, int drain_unroll,
+                     int npop, int lpop, int tree_width, int any_hit,
+                     float* t, int* slot, float* u, float* v, int* visits,
+                     int* error, void* stream, int* stats) {
+  return launch<true>(nodes, leaves, node_rows, leaf_rows, ox, oy, oz, dx, dy,
+                      dz, tmax, n, leaf_size, stack_depth, qcap, unroll,
+                      drain_unroll, npop, lpop, tree_width, any_hit, t, slot,
+                      u, v, visits, error, stats, stream);
+}
+
+// The grid and the block of fspt_walk5's launch for n rays, launching
+// nothing: what traverse5_proto.py `walk5_geometry` is held to.
+int fspt_walk5_geometry(int n, int* blocks, int* threads) {
+  geometry(n, blocks, threads);
+  return 0;
+}
+
+// The clusters of fspt_walk5 that the card holds at once
+// (cudaOccupancyMaxActiveClusters) and its blocks an SM, at these sizes.
+int fspt_walk5_occupancy(int tree_width, int any_hit, int stack_depth,
+                         int qcap, int* clusters, int* blocks_per_sm) {
+  const size_t smem = dynamic_smem(stack_depth, qcap);
   if (tree_width == 8)
-    return any_hit ? launch_one<8, true>(nodes, leaves, rays, p, hits, error, s)
-                   : launch_one<8, false>(nodes, leaves, rays, p, hits, error,
-                                          s);
+    return any_hit ? occupancy_of<8, true>(smem, clusters, blocks_per_sm)
+                   : occupancy_of<8, false>(smem, clusters, blocks_per_sm);
   if (tree_width == 16)
-    return any_hit
-               ? launch_one<16, true>(nodes, leaves, rays, p, hits, error, s)
-               : launch_one<16, false>(nodes, leaves, rays, p, hits, error, s);
+    return any_hit ? occupancy_of<16, true>(smem, clusters, blocks_per_sm)
+                   : occupancy_of<16, false>(smem, clusters, blocks_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,8 +1,9 @@
 """Measuring launchers: the traversal kernels and their earlier designs,
 called directly.
 
-csrc/traverse4_v0.cu, csrc/walk_v0.cu and csrc/micro_v0.cu are the first
-designs of csrc/traverse4.cu, csrc/walk.cu and csrc/micro.cu, and
+csrc/traverse4_v0.cu, csrc/walk_v0.cu, csrc/walk5_v0.cu, csrc/dense_mt_v0.cu
+and csrc/micro_v0.cu are the first designs of csrc/traverse4.cu,
+csrc/walk.cu, csrc/walk5.cu, csrc/dense_mt.cu and csrc/micro.cu, and
 `fspt_walk1_block` of csrc/walk.cu is the packet walk as one 1,024-thread
 block, what `fspt_walk1` was before csrc/walk1.cu made a packet a thread
 block cluster.  They are kept buildable so that a measurement can time old
@@ -12,16 +13,20 @@ module builds any source through ops/_build.py and returns closures that
 launch one captured call without the wrappers' checks, old and new through
 the same host code, so that their times compare.  `fspt_walk3_padded` (both
 walk sources) is `fspt_walk3` whose blocks ask for shared memory they never
-touch, which cuts the blocks an SM can hold.
+touch, which cuts the blocks an SM can hold.  `fspt_walk5_stats` (the
+current walk5 source) is `fspt_walk5` that also writes, for each block (a
+walk), its program's bursts and the cycles the walk spent in each phase of
+its substeps.
 
-Used by chip_smoke.py ([versus] and [shape] lines) and by
-fspt_tpu_torch/scripts/perf_walk_launches.py and perf_r5d.py.  No launch
-here adds to a wrapper's `launches` count.
+Used by chip_smoke.py ([versus] and [shape] lines), by
+fspt_tpu_torch/scripts/perf_walk_launches.py, perf_walk5_forms.py and
+perf_r5d.py, and by the card's tests.  No launch here adds to a wrapper's `launches` count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import inspect
 
 import torch
 
@@ -32,6 +37,19 @@ from fspt_tpu_torch.ops.traverse4 import TRAVERSE4_ARGTYPES
 
 TRAVERSE4_SOURCES = ("traverse4_v0", "traverse4")      # first design, current
 WALK_SOURCES = ("walk_v0", "walk")
+WALK5_SOURCES = ("walk5_v0", "walk5")
+DENSE_MT_SOURCES = ("dense_mt_v0", "dense_mt")
+# ints a block of fspt_walk5_stats (kStats in csrc/walk5.cu): its program's
+# bursts, drain bursts, drain bursts voted with no walk alive and leaves
+# queued, and substeps (the bursts' lengths summed); the block's clock cycles
+# from start to end and its substeps that had work; the cycles its warp 0
+# spent in the burst vote, waiting for its rows and the other warps, in the
+# box tests, at the votes' barrier, on pushes, planning the next substep, and
+# in the drain units' tests
+WALK5_STATS = ("bursts", "drain_bursts", "idle_drain_bursts", "substeps",
+               "cycles", "worked", "vote", "wait", "box", "votes", "push",
+               "plan", "mt")
+WALK5_PHASES = WALK5_STATS[6:]
 # the packet walk: (source, entry point) of the first design, of the
 # 1,024-thread block that followed it, and of the current cluster kernel
 WALK1_DESIGNS = (("walk_v0", "fspt_walk1"), ("walk", "fspt_walk1_block"),
@@ -136,4 +154,86 @@ def micro_launcher(source, table, rays, variant, k):
                                  ctypes.c_void_p(stream))
         _raise(lib, f"{source} {variant}", err)
         return out
+    return launch
+
+
+def _defaults(fn):
+    """A wrapper's keyword defaults: what a captured call left out."""
+    return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+            if p.kind == p.KEYWORD_ONLY}
+
+
+def walk5_launcher(source, args, kw, stats=None):
+    """A closure that launches `fspt_walk5` of csrc/<source>.cu ("walk5_v0",
+    the first design, or "walk5") on a captured packet_traverse5 call
+    (args, kw) and returns its PacketHit.  With `stats`, an int32 tensor of
+    (blocks, len(WALK5_STATS)) (traverse5_proto.walk5_geometry), the current
+    source's `fspt_walk5_stats` fills it as well."""
+    from fspt_tpu_torch.scripts.traverse5_proto import (WALK5_ARGTYPES,
+                                                         packet_traverse5)
+    fn_name = "fspt_walk5" if stats is None else "fspt_walk5_stats"
+    types = WALK5_ARGTYPES + ([] if stats is None else [ctypes.c_void_p])
+    lib = _build.load(source, {fn_name: types})
+    nodes, leaves, ro, rd, tmax = args
+    tmax, planes, dev = ray_planes(source, nodes, leaves, ro, rd, tmax)
+    n = ro.x.shape[0]
+    flag = error_flag(dev)
+    kw = {**_defaults(packet_traverse5), **kw}
+    ints = (n, *(kw[k] for k in ("leaf_size", "stack_depth", "qcap",
+                                 "unroll")),
+            kw["drain_unroll"] if kw["drain_unroll"] > 0 else kw["unroll"],
+            kw["npop"], kw["lpop"], kw["tree_width"], int(kw["any_hit"]))
+    tail = () if stats is None else (stats.data_ptr(),)
+
+    def launch():
+        hit = _outputs(n, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        head = (nodes.data_ptr(), leaves.data_ptr(), nodes.shape[0],
+                leaves.shape[0], *(x.data_ptr() for x in planes))
+        with torch.cuda.device(dev):
+            err = getattr(lib, fn_name)(
+                *head, *ints, *(x.data_ptr() for x in hit), flag.data_ptr(),
+                ctypes.c_void_p(stream), *tail)
+        _raise(lib, f"{source} {fn_name}", err)
+        return hit
+    return launch
+
+
+def walk5_occupancy(kw, source="walk5"):
+    """(clusters the card holds at once, blocks an SM) of the walk5 kernel
+    of csrc/<source>.cu (the current one, or a form of it) at a
+    packet_traverse5 call's sizes, from cudaOccupancyMaxActiveClusters and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    from fspt_tpu_torch.scripts.traverse5_proto import packet_traverse5
+    out = ctypes.POINTER(ctypes.c_int)
+    lib = _build.load(source, {"fspt_walk5_occupancy": [ctypes.c_int] * 4
+                               + [out, out]})
+    kw = {**_defaults(packet_traverse5), **kw}
+    clusters, blocks = ctypes.c_int(), ctypes.c_int()
+    _raise(lib, "walk5 occupancy", lib.fspt_walk5_occupancy(
+        kw["tree_width"], int(kw["any_hit"]), kw["stack_depth"], kw["qcap"],
+        ctypes.byref(clusters), ctypes.byref(blocks)))
+    return clusters.value, blocks.value
+
+
+def dense_mt_launcher(source, tile_tl, tris, rays, T):
+    """A closure that launches `fspt_dense_mt` of csrc/<source>.cu
+    ("dense_mt_v0", the first design, or "dense_mt") on dense_mt's inputs
+    and returns its (t, slot)."""
+    from fspt_tpu_torch.scripts.perf_r5_treelet import DENSE_MT_ARGTYPES
+    lib = _build.load(source, {"fspt_dense_mt": DENSE_MT_ARGTYPES})
+    dev = tris.device
+    n_tiles = tile_tl.shape[0]
+
+    def launch():
+        t = torch.empty((n_tiles, 8, 128), dtype=torch.float32, device=dev)
+        slot = torch.empty((n_tiles, 8, 128), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.fspt_dense_mt(tile_tl.data_ptr(), tris.data_ptr(),
+                                    tris.shape[0], rays.data_ptr(),
+                                    t.data_ptr(), slot.data_ptr(), n_tiles, T,
+                                    ctypes.c_void_p(stream))
+        _raise(lib, f"{source} T={T}", err)
+        return t, slot
     return launch

@@ -23,7 +23,9 @@ component on real data and composes the total:
 
 `dense_mt` dispatches on the tensors' device: the plain version
 (`dense_mt_reference`, vectorised over tiles) for CPU tensors; for CUDA
-tensors the kernel, or an exception.  The two agree bit for bit.
+tensors the kernel (a tile over 8 blocks of 128 threads, the treelet's rows
+staged in shared memory, per row only the slots up to its last triangle
+with an edge: `tested_slots`), or an exception.  The two agree bit for bit.
 
 Run on the card: python -m fspt_tpu_torch.scripts.perf_r5_treelet
 """
@@ -131,6 +133,18 @@ def dense_mt_reference(tile_tl, tris, rays, T: int):
             bt = torch.where(ok, tt, bt)
             bs = torch.where(ok, r * 8 + j, bs)
     return bt, bs
+
+
+def tested_slots(rows):
+    """Per leaf row (..., 128) of 8 triangles: the slots that the kernel
+    tests (csrc/walk_common.cuh `leaf_tests`), those up to the row's last
+    triangle with an edge, in whole pairs.  A slot past it is all zeros and
+    can never be hit; one inside it is tested whatever it holds."""
+    edge = (rows[..., :72].reshape(*rows.shape[:-1], 8, 9)[..., 3:]
+            != 0.0).any(-1)
+    upto = torch.where(edge, torch.arange(1, 9, device=rows.device),
+                       0).amax(-1)
+    return (upto + 1) // 2 * 2
 
 
 # ---- the CUDA kernel ------------------------------------------------------

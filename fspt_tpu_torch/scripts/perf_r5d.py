@@ -31,7 +31,8 @@ because csrc/micro.cu lays the three families on the card differently:
     the fetch hidden.
 The first design (csrc/micro_v0.cu: the TPU kernel's one program as one
 1,024-thread block, so one SM's issue rate for eight walks, which is what
-a substep of csrc/walk5.cu's one-block programs costs) stays measurable:
+a substep of the one-block programs of csrc/walk5_v0.cu costs) stays
+measurable:
 `main` prints its time beside each variant's (through ops/_versus.py).
 
 `micro` dispatches on the tensors' device: the plain version

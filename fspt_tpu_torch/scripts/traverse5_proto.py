@@ -39,8 +39,10 @@ multiple of it with parked rays (origin 1e9, direction +y, tmax 0).  Each
 
 `packet_traverse5` dispatches on the tensors' device: the plain version
 (`packet_traverse5_reference`, a torch loop vectorised over programs and
-walks) for CPU tensors; for CUDA tensors the kernel of csrc/walk5.cu (one
-1024-thread block per program), or an exception.  The two follow the same
+walks) for CPU tensors; for CUDA tensors the kernel of csrc/walk5.cu (a
+program a thread block cluster of 8 blocks, a walk a 128-thread block, the
+walks' words crossing the cluster only at burst boundaries;
+`walk5_geometry` is its launch), or an exception.  The two follow the same
 order and float32 arithmetic operation for operation and agree bit for bit.
 
 Deviations from the JAX kernel:
@@ -370,6 +372,34 @@ WALK5_ARGTYPES = (
 def load_walk5() -> ctypes.CDLL:
     """The v5 kernel library (csrc/walk5.cu), built on first call."""
     return _build.load("walk5", {"fspt_walk5": WALK5_ARGTYPES})
+
+
+def walk5_geometry(n: int) -> dict:
+    """The launch csrc/walk5.cu makes for n rays, a program a cluster of
+    WALKS blocks of LANES threads: {"programs", "blocks" (the grid: whole
+    clusters), "threads" (a block: one walk's rays), "pad_rays" (pad rays
+    that fill the last program), "pad_blocks" (walks of the last program
+    that hold pad rays only)}.  The kernel library answers the same
+    question for its own launch (`walk5_kernel_geometry`); the card's tests
+    hold the two together."""
+    if n < 0:
+        raise ValueError(f"walk5_geometry: n must be >= 0, got {n}")
+    programs = -(-n // (WALKS * LANES))
+    blocks = programs * WALKS
+    return {"programs": programs, "blocks": blocks, "threads": LANES,
+            "pad_rays": programs * WALKS * LANES - n,
+            "pad_blocks": blocks - -(-n // LANES)}
+
+
+def walk5_kernel_geometry(n: int) -> tuple[int, int]:
+    """(blocks, threads a block) of the launch `fspt_walk5` makes for n
+    rays, asked of the built library; it launches nothing."""
+    out = ctypes.POINTER(ctypes.c_int)
+    lib = _build.load("walk5",
+                      {"fspt_walk5_geometry": [ctypes.c_int, out, out]})
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    lib.fspt_walk5_geometry(n, ctypes.byref(blocks), ctypes.byref(threads))
+    return blocks.value, threads.value
 
 
 def packet_traverse5(nodes, leaves, origin: V3, direction: V3, tmax=None, *,

@@ -130,6 +130,31 @@ def test_dense_mt_plain_version_does_not_count_launches(dense_inputs):
     assert perf_r5_treelet.dense_mt.launches == before
 
 
+def test_tested_slots_against_real_triangles(scene):
+    """The slots the kernel tests a leaf row (up to its last triangle with
+    an edge, in whole pairs) against ops/traverse.py `real_triangles`: packed
+    leaf rows keep their padding at the end, so the two differ only by the
+    rounding to a pair."""
+    from fspt_tpu_torch.ops.traverse import real_triangles
+    leaves = torch.from_numpy(scene[0].arrays.pk_leaves)
+    real = real_triangles(leaves, 8)
+    slots = perf_r5_treelet.tested_slots(leaves)
+    assert bool((real < 8).any())                     # the rows have padding
+    assert torch.equal(slots, real + real % 2)
+    # per treelet of T = 64 (8 rows): what a tile tests against what it needs
+    tl = slots[:leaves.shape[0] // 8 * 8].reshape(-1, 8).sum(1)
+    need = real[:leaves.shape[0] // 8 * 8].reshape(-1, 8).sum(1)
+    assert bool((tl >= need).all() & (tl - need <= 8).all())
+
+
+def test_tested_slots_keeps_inner_empty_slots():
+    rows = torch.zeros((3, 128))
+    rows[1, 9 * 2 + 3] = 1.0                # slot 2 only: slots 0-3 tested
+    rows[2, 9 * 7 + 8] = -0.5               # slot 7 only
+    rows[2, 9 * 0 + 4] = -0.0               # (-0 is no edge)
+    assert perf_r5_treelet.tested_slots(rows).tolist() == [0, 4, 8]
+
+
 def test_frontier_pairs_matches_jax_script(scene):
     J = _jax_script("perf_r5_treelet")
     a = scene[0].arrays
@@ -326,6 +351,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _first_design(inputs, device, T):
+    """(t, slot) of csrc/dense_mt_v0.cu on the same inputs."""
+    from fspt_tpu_torch.ops._versus import dense_mt_launcher
+    leaves, tile_tl, rays = (torch.from_numpy(a).to(device) for a in inputs)
+    return dense_mt_launcher("dense_mt_v0", tile_tl, leaves, rays, T)()
+
+
+def _same(a, b):
+    """Bit for bit, NaN where NaN."""
+    return all(bool(((x == y) | (x.isnan() & y.isnan())).all())
+               for x, y in zip(a, b))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", perf_r5_treelet.TREELETS)
 def test_cuda_dense_mt_bit_exact_vs_plain(dense_inputs, cuda_device, T):
@@ -339,7 +377,62 @@ def test_cuda_dense_mt_bit_exact_vs_plain(dense_inputs, cuda_device, T):
     tp, sp = _dense((leaves, tile_tl, rays), cuda_device, reference=True,
                     T=T)
     assert torch.equal(t, tp) and torch.equal(slot, sp)
+    assert _same((t, slot), _first_design((leaves, tile_tl, rays),
+                                          cuda_device, T))
     assert int((slot >= 0).sum()) > 0
+
+
+def _full_rows(n_rows, seed):
+    """Leaf rows with 8 triangles each, around the origin."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((n_rows, 128), np.float32)
+    tri = rng.normal(size=(n_rows, 8, 9)).astype(np.float32)
+    tri[..., 3:] *= 0.8
+    rows[:, :72] = tri.reshape(n_rows, 72)
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [1, 131, 132, 133, 183])
+@pytest.mark.parametrize("rows", ["padded", "full"])
+@pytest.mark.parametrize("T", perf_r5_treelet.TREELETS)
+def test_cuda_dense_mt_tiles_bit_exact(dense_inputs, cuda_device, T, rows,
+                                       tiles):
+    """Tile counts around one block an SM (132) and the study's 183, on
+    leaf rows with padding slots (the test scene's) and with none."""
+    leaves = dense_inputs[0] if rows == "padded" else _full_rows(64, T)
+    filled = perf_r5_treelet.tested_slots(torch.from_numpy(leaves))
+    assert bool((filled < 8).any()) == (rows == "padded")
+    rng = np.random.default_rng(tiles + T)
+    tile_tl = rng.integers(0, leaves.shape[0] // (T // 8), (tiles, 1),
+                           dtype=np.int32)
+    rays = rng.normal(size=(tiles, 7, 8, 128)).astype(np.float32)
+    rays[:, 6] = 1.0e5
+    inputs = (leaves, tile_tl, rays)
+    t, slot = _dense(inputs, cuda_device, T=T)
+    tp, sp = _dense(inputs, cuda_device, reference=True, T=T)
+    assert torch.equal(t, tp) and torch.equal(slot, sp)
+    assert _same((t, slot), _first_design(inputs, cuda_device, T))
+    assert int((slot >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", perf_r5_treelet.TREELETS)
+def test_cuda_dense_mt_out_of_range_treelet(dense_inputs, cuda_device, T):
+    """A treelet past the table or below 0 (launch_dense_mt does not check)
+    reads nothing: NaN t and slot -1; the other tiles are as usual."""
+    leaves, _, rays = dense_inputs
+    n_tl = leaves.shape[0] // (T // 8)
+    tile_tl = np.array([[0], [n_tl], [-1]], np.int32)
+    to = lambda a: torch.from_numpy(a).to(cuda_device)
+    t, slot = perf_r5_treelet.launch_dense_mt(to(tile_tl), to(leaves),
+                                              to(rays), T)
+    assert bool(t[1:].isnan().all()) and bool((slot[1:] == -1).all())
+    tp, sp = _dense((leaves, tile_tl[:1], rays[:1]), cuda_device,
+                    reference=True, T=T)
+    assert torch.equal(t[:1], tp) and torch.equal(slot[:1], sp)
+    assert _same((t, slot), _first_design((leaves, tile_tl, rays),
+                                          cuda_device, T))
 
 
 @pytest.mark.cuda

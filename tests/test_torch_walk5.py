@@ -16,8 +16,11 @@ The JAX kernel takes ~9 s per call in interpret mode at unroll=1 (~70 s at
 its default unroll=4), so the tests run unroll=1, drain_unroll=1 and share
 each JAX result across the module.  The JAX prototype lives under scripts/,
 which the fixture puts on sys.path.  On a machine with a card the CUDA
-kernel must match the plain version bit for bit (marked `cuda`; skipped
-here); that machine has no JAX, and runs this file as
+kernel (csrc/walk5.cu, a program a thread block cluster) must match the
+plain version and the first design (csrc/walk5_v0.cu, through
+fspt_tpu_torch/ops/_versus.py) bit for bit, at several ray counts and at the
+schedule's edges (marked `cuda`; skipped here); that machine has no JAX, and
+runs this file as
     python -m pytest --noconftest -m cuda tests/test_torch_walk5.py
 """
 
@@ -33,7 +36,8 @@ from fspt_tpu_torch.ops import packing
 from fspt_tpu_torch.scene.bvh import triangle_aabbs
 from fspt_tpu_torch.scene.fastbvh import build_bvh_fast
 from fspt_tpu_torch.scripts.traverse5_proto import (
-    packet_traverse5, packet_traverse5_reference)
+    LANES, WALKS, packet_traverse5, packet_traverse5_reference,
+    walk5_geometry)
 
 torch.set_num_threads(1)
 
@@ -105,15 +109,37 @@ def pallas(setup):
     return get
 
 
+def _rays(setup, n):
+    """n rays: the setup's first n, or past N more drawn the same way."""
+    _, o, d, tm = setup
+    if n <= N:
+        return o[:, :n], d[:, :n], tm[:n]
+    rng = np.random.default_rng(7)
+    o2 = rng.uniform(-2, 2, size=(3, n - N)).astype(np.float32)
+    d2 = rng.normal(size=(3, n - N)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=0, keepdims=True)
+    tm2 = rng.uniform(0.05, 1.5, size=n - N).astype(np.float32)
+    tm2[::2] = 1.0e5
+    return (np.concatenate([o, o2], 1), np.concatenate([d, d2], 1),
+            np.concatenate([tm, tm2]))
+
+
+def _inputs(setup, params="default", width=8, device="cpu", n=N, **kw):
+    """The (args, kwargs) of a packet_traverse5 call on the setup."""
+    pk = setup[0][width]
+    o, d, tm = _rays(setup, n)
+    t = lambda a: _t(a).to(device)
+    kw = {**PARAMS[params], "stack_depth": _stack(pk, width), "leaf_size": 8,
+          "tree_width": width, **kw}
+    return (t(pk.nodes), t(pk.leaves), V3(*map(t, o)), V3(*map(t, d)),
+            t(tm)), kw
+
+
 def _port(setup, params="default", width=8, device="cpu", reference=False,
           **kw):
-    pks, o, d, tm = setup
-    pk = pks[width]
     fn = packet_traverse5_reference if reference else packet_traverse5
-    t = lambda a: _t(a).to(device)
-    kw = {**PARAMS[params], "stack_depth": _stack(pk, width), **kw}
-    return fn(t(pk.nodes), t(pk.leaves), V3(*map(t, o)), V3(*map(t, d)),
-              t(tm), leaf_size=8, tree_width=width, **kw)
+    args, kw = _inputs(setup, params, width, device, **kw)
+    return fn(*args, **kw)
 
 
 def _steady_walks(d):
@@ -226,6 +252,47 @@ def test_plain_version_does_not_count_launches(setup):
     assert packet_traverse5.launches == before
 
 
+@pytest.mark.parametrize("n", [1, 1025])
+def test_geometry_matches_plain_padding(setup, n):
+    """walk5_geometry (the kernel's launch, held to the library on a card)
+    against the plain version's padding: its walks' visits, tallied per walk
+    over the padded programs, exceed those of the walks with a real ray by
+    one root visit for each walk of pad rays alone."""
+    g = walk5_geometry(n)
+    assert g["programs"] == -(-n // (WALKS * LANES))
+    assert g["blocks"] == g["programs"] * WALKS and g["threads"] == LANES
+    assert g["pad_rays"] == g["programs"] * WALKS * LANES - n
+    counts = {}
+    hit = _port(setup, reference=True, n=n, counts=counts)
+    tallied = int(counts["node"] + counts["leaf"]) // LANES
+    assert tallied - int(hit.visits[::LANES].sum()) == g["pad_blocks"]
+    assert g["pad_blocks"] == g["blocks"] - -(-n // LANES)
+
+
+def test_geometry_of_empty_and_whole_launches():
+    assert walk5_geometry(0) == {"programs": 0, "blocks": 0,
+                                 "threads": LANES, "pad_rays": 0,
+                                 "pad_blocks": 0}
+    g = walk5_geometry(8 * WALKS * LANES)
+    assert (g["programs"], g["pad_rays"], g["pad_blocks"]) == (8, 0, 0)
+    with pytest.raises(ValueError):
+        walk5_geometry(-1)
+
+
+@pytest.mark.parametrize("source", ["walk5", "dense_mt"])
+def test_kernel_keeps_no_arithmetic_of_its_own(source):
+    """The redesigned kernels take their ray tests from csrc/walk_common.cuh
+    (one source of the arithmetic that the plain versions repeat); walk5
+    launches a program as a thread block cluster."""
+    from fspt_tpu_torch.ops import _build
+    text = open(os.path.join(_build.CSRC, f"{source}.cu")).read()
+    assert '#include "walk_common.cuh"' in text
+    for own in ("det =", "1e-6f", "fminf(t1x"):
+        assert own not in text, own
+    if source == "walk5":
+        assert "cudaLaunchAttributeClusterDimension" in text
+
+
 # ---- the CUDA kernel against its plain version (on a card) --------------
 
 @pytest.fixture
@@ -235,19 +302,121 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the kernel's cases: ray counts of several clusters and a partial program;
+# a queue at the burst bound (tree_width * unroll * npop = 8 * 1 * 2 at FAST),
+# where every queued leaf makes the next burst a pure drain; no drain units
+# in mixed substeps (lpop=0), where leaves wait until no walk is alive
+CUDA_CASES = {"default": {}, "n1l2": dict(params="n1l2"),
+              "any": dict(any_hit=True), "w16": dict(width=16),
+              "unroll4": dict(unroll=4, drain_unroll=4), "n1": dict(n=1),
+              "n1023": dict(n=1023), "n1025": dict(n=1025),
+              "n8193": dict(n=8193), "qcap_bound": dict(qcap=16),
+              "lpop0": dict(lpop=0)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["default", "n1l2", "any", "w16",
-                                  "unroll4"])
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
 def test_cuda_kernel_bit_exact_vs_plain(setup, cuda_device, case):
+    from fspt_tpu_torch.ops._versus import WALK5_STATS, walk5_launcher
     from fspt_tpu_torch.ops.traverse import check_stack_overflow
-    kw = {"any": dict(any_hit=True), "w16": dict(width=16),
-          "unroll4": dict(unroll=4, drain_unroll=4)}.get(case, {})
-    params = case if case in PARAMS else "default"
+    args, kw = _inputs(setup, device=cuda_device, **CUDA_CASES[case])
     before = packet_traverse5.launches
-    ours = _port(setup, params, device=cuda_device, **kw)
+    ours = packet_traverse5(*args, **kw)
     torch.cuda.synchronize()
     check_stack_overflow(cuda_device)
     assert packet_traverse5.launches == before + 1
-    ref = _port(setup, params, device=cuda_device, reference=True, **kw)
-    for f in ours._fields:
-        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+    ref = packet_traverse5_reference(*args, **kw)
+    first = walk5_launcher("walk5_v0", args, kw)()
+    g = walk5_geometry(args[2].x.shape[0])
+    stats = torch.zeros((g["blocks"], len(WALK5_STATS)), dtype=torch.int32,
+                        device=cuda_device)
+    counted = walk5_launcher("walk5", args, kw, stats)()
+    torch.cuda.synchronize()
+    check_stack_overflow(cuda_device)
+    assert packet_traverse5.launches == before + 1
+    for other in (ref, first, counted):
+        for f in ours._fields:
+            assert torch.equal(getattr(ours, f), getattr(other, f)), f
+    s = dict(zip(WALK5_STATS, stats[::WALKS].sum(0).tolist()))
+    assert s["bursts"] >= g["programs"] and s["substeps"] >= s["bursts"]
+    assert 0 < s["worked"] <= s["substeps"]
+    if case == "qcap_bound":
+        assert s["drain_bursts"] > 0
+    if case == "lpop0":
+        assert s["idle_drain_bursts"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_overflow_raises_not_hangs(setup, cuda_device):
+    """A stack one entry short ends its program through the vote's abort
+    bit while the other programs of the launch run on, and raises, as the
+    plain version does.  A leaf queue cannot overflow: the vote drains
+    before a mixed burst could pass qcap, given qcap >= tree_width * unroll
+    * npop; below that every burst would drain an empty queue forever, so
+    the wrapper raises and the kernel's entry point refuses the launch."""
+    from fspt_tpu_torch.ops._versus import walk5_launcher
+    from fspt_tpu_torch.ops.traverse import check_stack_overflow
+    args, kw = _inputs(setup, device=cuda_device, n=8193)
+
+    def overflows(depth):
+        packet_traverse5(*args, **{**kw, "stack_depth": depth})
+        torch.cuda.synchronize()
+        try:
+            check_stack_overflow(cuda_device)
+        except RuntimeError as e:
+            assert "overflowed" in str(e)
+            return True
+        return False
+
+    lo, hi = 1, kw["stack_depth"]
+    assert not overflows(hi)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid + 1, hi) if overflows(mid) else (lo, mid)
+    assert lo > 2
+    assert overflows(lo - 1)
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        packet_traverse5_reference(*args, **{**kw, "stack_depth": lo - 1})
+    ok = packet_traverse5_reference(*args, **{**kw, "stack_depth": lo})
+    hit = packet_traverse5(*args, **{**kw, "stack_depth": lo})
+    torch.cuda.synchronize()
+    check_stack_overflow(cuda_device)
+    assert torch.equal(hit.slot, ok.slot) and torch.equal(hit.visits,
+                                                          ok.visits)
+    bound = kw["tree_width"] * kw["unroll"] * 2          # npop = 2
+    with pytest.raises(ValueError, match="qcap"):
+        packet_traverse5(*args, **{**kw, "qcap": bound - 1})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        walk5_launcher("walk5", args, {**kw, "qcap": bound - 1})()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_geometry(cuda_device):
+    from fspt_tpu_torch.scripts.traverse5_proto import walk5_kernel_geometry
+    for n in (0, 1, 127, 1023, 1024, 1025, 8193):
+        g = walk5_geometry(n)
+        assert walk5_kernel_geometry(n) == (g["blocks"], g["threads"]), n
+
+
+# ---- the measured forms of the kernel (perf_walk5_forms) ----------------
+
+@pytest.mark.parametrize("form", ["pad4", "pad2", "pad1", "lb10", "lb12",
+                                  "skip", "mt2", "box2", "vote1w", "units"])
+def test_every_measured_form_applies_to_the_kernel(form):
+    """Each form that fspt_tpu_torch/scripts/perf_walk5_forms.py times is
+    one edit of csrc/walk5.cu: it must still find its text there."""
+    from fspt_tpu_torch.ops import _build
+    from fspt_tpu_torch.scripts.perf_walk5_forms import FORMS
+    base = open(os.path.join(_build.CSRC, "walk5.cu")).read()
+    text = FORMS[form](base)
+    assert text != base and "int fspt_walk5_stats(" in text
+
+
+def test_form_registers_read_the_launched_instance():
+    from fspt_tpu_torch.scripts.perf_walk5_forms import registers
+    entry = ("ptxas info : Compiling entry function '_ZN12_GLOBAL__N_112"
+             "walk5_kernelILi{}ELb0ELb0EEvPKf' for 'sm_90a'\n"
+             "    {} bytes stack frame, {} bytes spill stores, {} bytes "
+             "spill loads\nptxas info    : Used {} registers\n")
+    log = entry.format(16, 8, 4, 4, 64) + entry.format(8, 0, 12, 16, 63)
+    assert registers(log) == (63, 12, 16)

@@ -92,7 +92,20 @@ Phases (one line each; any failure raises and exits non-zero):
      bit to the first design, csrc/micro_v0.cu, in the [versus] lines, which
      time the two in turns); then perf_r5d.main() at K=4096 (ns/substep),
      its launch count read (a count of calls: a call of the leaf family is
-     three kernel launches).
+     three kernel launches);
+ 16. train: the differentiable path (parallel/dist.py make_train_step) on
+     the bench scene at 512x512 under the bench configuration without the
+     cross-sample batch ("split", 8 bounces, 1 spp a step).  The target is
+     the step's own render at the scene's parameters; from env_rgb and emit
+     scaled by 0.5, 3 plain gradient-descent steps on those two fields at
+     TRAIN_LR, every step at the same key and step_idx=0, so the loss is a
+     deterministic function of the parameters and must fall.  A [train]
+     line a step (loss, ms, peak memory, traverse4's launches in the step
+     against its calls and the expected count), the median ms, then the
+     directional derivative of the loss along one seeded direction of the
+     env texels against a central difference (h=5e-3, bound 2e-2 relative,
+     as tests/test_grad_fd.py), and one step under the default
+     configuration ("walk"), fspt_walk3's launches counted.
 Then one JSON line with the kernels' numbers (each row with its bound from
 ops/traverse.py `traversal_bound`, computed from this run's visit counts and
 the valid children and real triangles those visits tested, and its launches
@@ -546,6 +559,136 @@ def check_image(r, label, size):
     if not hdr.mean() > 0:
         raise AssertionError(f"{label} image is black")
     return hdr
+
+
+# plain gradient descent on env_rgb and emit in phase 16.  The loss is a
+# quadratic of those two fields (they enter no branch); on the card the
+# loss along the first step's gradient, L0 - lr*a + lr**2*b/2, fitted from
+# rates 25 and 50, has a = 0.050 and b = 0.014 (PERF.md, train step), so it
+# falls for lr < 2a/b = 7 and most at 3.5.  1.0 leaves room for
+# directions more curved than the gradient's.
+TRAIN_LR = 1.0
+
+
+def phase_train(scene, smi):
+    """16. train (see the module docstring).  Raises on a failure."""
+    import numpy as np
+    import torch
+    from fspt_tpu_torch import RenderConfig
+    from fspt_tpu_torch.core import integrator, rng
+    from fspt_tpu_torch.core.vec import V3
+    from fspt_tpu_torch.ops.traverse3 import packet_traverse3
+    from fspt_tpu_torch.ops.traverse4 import packet_traverse4
+    from fspt_tpu_torch.parallel.dist import (make_train_step,
+                                              params_to_torch, split_params)
+    from fspt_tpu_torch.runtime.renderer import CameraState
+    size = 512
+    n = size * size
+    dev = torch.device("cuda:0")
+    cfg = RenderConfig(width=size, height=size, bounces=8,
+                       extra_refraction_iters=0, batch_spp=1, compact=True,
+                       sort_state=True, intersector="split",
+                       nee_env_nearest=True, escape_env_nearest=True,
+                       compact_schedule=BENCH_SCHEDULE)
+    arrays = scene.to_torch(dev)
+    cam = CameraState.from_config(scene.camera, dev)
+    host = split_params(scene.arrays)
+    cam_params = params_to_torch({"position": scene.camera.position,
+                                  "direction": scene.camera.direction}, dev)
+    base = rng.key(0)
+    step = make_train_step(cfg, scene.meta)
+    target = step.render(params_to_torch(host, dev), cam_params, arrays, cam,
+                         base, 0)
+    start_np = dict(host, env_rgb=tuple(0.5 * p for p in host["env_rgb"]),
+                    emit=tuple(0.5 * p for p in host["emit"]))
+    params = params_to_torch(start_np, dev)     # descends in place
+    start = params_to_torch(start_np, dev)
+    expected = integrator.traversal_launches(cfg, n, 1)
+    losses, times = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = packet_traverse4.launches
+        out = []
+        t0 = time.perf_counter()
+        # the step waits for its kernels (it reads the stack-overflow flag)
+        calls = capture_launches(integrator, "packet_traverse4", lambda: (
+            out.append(step(params, cam_params, arrays, cam, target, base,
+                            0))))
+        loss, grads, _ = out[0]
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = packet_traverse4.launches - before
+        peak = torch.cuda.max_memory_allocated(dev)
+        if not (launches == len(calls) == expected):
+            raise AssertionError(f"train step {i}: traverse4 launched "
+                                 f"{launches} times for {len(calls)} calls, "
+                                 f"expected {expected}")
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"train step {i}: loss {losses[-1]}")
+        if i == 0:
+            g_env0 = [g.clone() for g in grads["env_rgb"]]
+        say("train", step=i, loss=f"{losses[-1]:.6f}",
+            ms=f"{times[-1]:.2f}", peak_mib=f"{peak / 2**20:.1f}",
+            traverse4_launches=launches, calls=len(calls),
+            expected_launches=expected)
+        with torch.no_grad():
+            for f in ("env_rgb", "emit"):
+                for p, g in zip(params[f], grads[f]):
+                    p -= TRAIN_LR * g
+    if not losses[2] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall over 3 steps: "
+                             f"{losses}")
+    say("train_summary", size=f"{size}x{size}", bounces=cfg.bounces, spp=1,
+        lr=TRAIN_LR, loss_0=f"{losses[0]:.6f}", loss_2=f"{losses[2]:.6f}",
+        median_ms=f"{float(np.median(times)):.2f}",
+        peak_mib=f"{peak / 2**20:.1f}", traverse4_launches_per_step=launches,
+        card=repr(smi))
+
+    # directional derivative along one seeded env direction at the start
+    # point (every field as step 0 saw it), against a central difference
+    # at the same RNG streams
+    env0 = start["env_rgb"]
+    h = 5e-3
+    r = np.random.default_rng(16)
+    v = [torch.from_numpy(r.standard_normal(p.shape[0]).astype(np.float32))
+         .to(dev) for p in env0]
+    ad = float(sum(torch.dot(g, w) for g, w in zip(g_env0, v)))
+
+    def loss_at(sign):
+        p = dict(start, env_rgb=V3(*(e.detach() + sign * h * w
+                                     for e, w in zip(env0, v))))
+        out = step.render(p, cam_params, arrays, cam, base, 0)
+        # the step's loss, summed in float64 so that its rounding stays
+        # far below the difference of the two sides
+        return float(torch.mean((out - target).double() ** 2))
+
+    fd = (loss_at(1.0) - loss_at(-1.0)) / (2.0 * h)
+    rel = abs(ad - fd) / max(abs(ad), abs(fd), 1e-7)
+    say("train_grad", texels=env0[0].shape[0], h=h, ad=f"{ad:.6g}",
+        fd=f"{fd:.6g}", rel_err=f"{rel:.3g}", bound=2e-2)
+    if not rel < 2e-2 or not abs(ad) > 1e-7:
+        raise AssertionError(f"train: directional derivative {ad} against "
+                             f"central difference {fd} (rel {rel})")
+
+    # one step under the default configuration ("walk", fspt_walk3)
+    wcfg = RenderConfig(width=size, height=size)
+    wstep = make_train_step(wcfg, scene.meta)
+    wtarget = wstep.render(params_to_torch(host, dev), cam_params, arrays,
+                           cam, base, 0)
+    before = packet_traverse3.launches
+    t0 = time.perf_counter()
+    wloss, _, _ = wstep(start, cam_params, arrays, cam, wtarget, base, 0)
+    wloss = float(wloss)
+    wms = (time.perf_counter() - t0) * 1e3
+    wlaunches = packet_traverse3.launches - before
+    wexpected = integrator.traversal_launches(wcfg, n, 1)
+    if wlaunches != wexpected or not np.isfinite(wloss):
+        raise AssertionError(f"walk train step: {wlaunches} walk3 launches "
+                             f"(expected {wexpected}), loss {wloss}")
+    say("train_walk", size=f"{size}x{size}", loss=f"{wloss:.6f}",
+        ms=f"{wms:.2f}", walk3_launches=wlaunches,
+        expected_launches=wexpected, card=repr(smi))
 
 
 def main(kernels_only=False):
@@ -1126,6 +1269,10 @@ def main(kernels_only=False):
         raise AssertionError("perf_r5d launched micro no time")
     say("perf_r5d", micro_launches=micro_launches, k=perf_r5d.K,
         **{f"{v}_ns": f"{x:.1f}" for v, x in ns.items()}, card=repr(smi))
+
+    # ---- 16. train ----------------------------------------------------------
+    phase_train(scene, smi)
+    check_stack_overflow(dev)
 
     # ---- the kernels and the result --------------------------------------
     # library_ms is null in every row: no PyTorch call computes a BVH

@@ -11,6 +11,7 @@ Public API:
     fspt_tpu_torch.load_scene_dict(d, loader) / load_scene_file(path)
     fspt_tpu_torch.Renderer(scene, config, device="cuda")
     fspt_tpu_torch.render(scene, config, device="cuda")
+    fspt_tpu_torch.parallel.dist.make_train_step(config, meta, device="cuda")
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Environment-map lookup and HDRi importance sampling over the packed env
-row table (port of the main-path functions of fspt_tpu.core.env).
+row table (port of fspt_tpu.core.env).
 
 Every clip/mod before a gather sits where the JAX version has it: JAX clamps
 an out-of-range gather, torch raises (CPU) or asserts (CUDA), so the index
@@ -25,6 +25,43 @@ def env_uv(direction: V3, theta):
     u = theta + torch.atan2(direction.z, direction.x) / M_TAU
     v = torch.asin(torch.clamp(-direction.y, -1.0, 1.0)) * INV_PI + 0.5
     return u, v
+
+
+def bilinear_wrap_x(env_rgb: V3, hw, u, v) -> V3:
+    """Sample flat channel planes at continuous uv in [0,1]: REPEAT in u,
+    CLAMP_TO_EDGE in v (reference main.js:174-177), texel centers at
+    (i + 0.5) / N, GL LINEAR filtering.  env_rgb: V3 of (H*W,).  One (N, 3)
+    row gather per corner."""
+    h, w = hw
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    x0 = torch.remainder(x0f.to(torch.int32), w)
+    x1 = torch.remainder(x0 + 1, w)
+    y0 = torch.clamp(y0f.to(torch.int32), 0, h - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    i00 = y0 * w + x0
+    i10 = y0 * w + x1
+    i01 = y1 * w + x0
+    i11 = y1 * w + x1
+    w00 = (1 - fx) * (1 - fy)
+    w10 = fx * (1 - fy)
+    w01 = (1 - fx) * fy
+    w11 = fx * fy
+    rows = torch.stack([env_rgb.x, env_rgb.y, env_rgb.z], dim=-1)
+    out = (rows[i00] * w00[:, None] + rows[i10] * w10[:, None]
+           + rows[i01] * w01[:, None] + rows[i11] * w11[:, None])
+    return V3(out[:, 0], out[:, 1], out[:, 2])
+
+
+def env_radiance(env_rgb: V3, hw, direction: V3, theta) -> V3:
+    """V3 of (N,) radiance for V3 (N,) directions, from the flat planes
+    (the integrator's fallback when no packed env table was built)."""
+    u, v = env_uv(direction, theta)
+    return bilinear_wrap_x(env_rgb, hw, u, v)
 
 
 def pack_env_rows(env_rgb: V3, hw):

@@ -12,8 +12,12 @@ and keys the two agree up to float32 rounding.  What changes is idiom:
   * `jax.tree.map` over path states becomes explicit concatenation;
   * `lax.sort((key, arange))` becomes a stable `torch.sort` (equal, since
     the lane ids break ties in index order);
-  * stop_gradient disappears: this port renders, it does not
-    differentiate (gradients are ROADMAP A12);
+  * `sg` (jax.lax.stop_gradient) becomes `.detach()` at the same 34
+    values, each marked with the JAX line it mirrors: the traversal's
+    inputs and outputs, lobe choices, env-bin and light picks, sort keys
+    and compaction's RR keys carry no gradient, and everything else is
+    differentiable w.r.t. materials, atlas, env map and camera, as in the
+    JAX version (parallel/dist.py make_train_step takes the gradient);
   * traversal goes through the port's ops — "split" to ops/traverse4, "walk"
     to ops/traverse3, "packet" to ops/traverse — each a CUDA kernel for
     tensors on a card and its plain version on the CPU; "brute" is the
@@ -35,7 +39,7 @@ from fspt_tpu_torch.config import RenderConfig
 from fspt_tpu_torch.core import brdf
 from fspt_tpu_torch.core import rng
 from fspt_tpu_torch.core import vec
-from fspt_tpu_torch.core.env import (env_radiance_rows,
+from fspt_tpu_torch.core.env import (env_radiance, env_radiance_rows,
                                      env_radiance_rows_nearest,
                                      pack_env_rows, sample_env_bins,
                                      sample_env_bins_radiance)
@@ -65,6 +69,11 @@ def _contig(v: V3) -> V3:
     return V3(*(p.contiguous() for p in v))
 
 
+def _sg(v: V3) -> V3:
+    """stop_gradient of a V3."""
+    return V3(*(p.detach() for p in v))
+
+
 def intersect(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
               tmax=None, any_hit: bool = False) -> PacketHit:
     """Nearest-hit (or any-hit) traversal by cfg.intersector.
@@ -73,14 +82,20 @@ def intersect(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
     the JAX version; "walk" and "packet" get none, as there.  The port's
     kernels raise instead of dropping a push past the stack.  `visits` is
     per ray under "split" and per group (128 rays for "walk", 1024 for
-    "packet") otherwise; 0 under "brute"."""
+    "packet") otherwise; 0 under "brute".
+
+    Not differentiable by design: the hit is a discrete event, so the
+    inputs go in detached and shading re-derives the differentiable
+    quantities."""
     check_config(cfg)
     if cfg.intersector == "brute":
         return _intersect_brute(scene, cfg, origin, direction, tmax=tmax)
     width = meta.bvh_width
     depth = max(cfg.stack_depth, meta.pk_stack_depth)
-    args = (scene.pk_nodes, scene.pk_leaves, _contig(origin),
-            _contig(direction), tmax.contiguous() if tmax is not None else None)
+    # JAX :88-89, :103-104
+    args = (scene.pk_nodes, scene.pk_leaves, _contig(_sg(origin)),
+            _contig(_sg(direction)),
+            tmax.detach().contiguous() if tmax is not None else None)
     kw = dict(leaf_size=meta.leaf_size, any_hit=any_hit)
     if cfg.intersector == "split":
         return packet_traverse4(*args, stack_depth=depth + 2 * width,
@@ -140,9 +155,10 @@ def sorted_intersect(scene, cfg: RenderConfig, meta, origin: V3,
     if tmax is None:
         tmax = torch.full((n,), cfg.max_t, dtype=torch.float32,
                           device=origin.x.device)
-    perm = torch.sort(key, stable=True).indices
+    perm = torch.sort(key.detach(), stable=True).indices        # JAX :168
     rays = torch.stack([origin.x, origin.y, origin.z, direction.x,
-                        direction.y, direction.z, tmax], dim=-1)[perm]
+                        direction.y, direction.z, tmax],
+                       dim=-1).detach()[perm]                    # JAX :169
     hit = intersect(scene, cfg, meta,
                     V3(rays[:, 0], rays[:, 1], rays[:, 2]),
                     V3(rays[:, 3], rays[:, 4], rays[:, 5]),
@@ -159,15 +175,18 @@ def sorted_intersect(scene, cfg: RenderConfig, meta, origin: V3,
 
 def _intersect_brute(scene, cfg, origin: V3, direction: V3,
                      tmax=None) -> PacketHit:
-    """O(N*T) oracle path (cfg.intersector='brute', tests only)."""
-    o = vec.to_array(origin)
-    d = vec.to_array(direction)
+    """O(N*T) oracle path (cfg.intersector='brute', tests only).  Its t, u
+    and v are torch expressions of the rays, so the rays go in detached
+    like the kernels' and the hit carries no gradient."""
+    o = vec.to_array(origin).detach()                            # JAX :188
+    d = vec.to_array(direction).detach()                         # JAX :189
     t, slot = brute_force_intersect(o, d, scene.tri_v0, scene.tri_e1,
                                     scene.tri_e2, max_t=cfg.max_t)
     if tmax is not None:
         # honor the per-ray clip like the traversal kernels (hits require
         # t < tmax), so light-NEE shadow rays do not self-block on the
         # light they sample
+        tmax = tmax.detach()                                     # JAX :197
         hit_ok = t < tmax
         slot = torch.where(hit_ok, slot, -1)
         t = torch.where(hit_ok, t, tmax)
@@ -225,13 +244,14 @@ class TexTables(NamedTuple):
           material plus the x-neighbour texel's (a bilinear fetch of all
           four maps is 2 row gathers); None above the memory guard, when
           the per-map atlas_rows path is used instead.
-      env6: (H*W, 6) — x-neighbour-packed environment map.
+      env6: (H*W, 6) — x-neighbour-packed environment map; None makes
+          shading filter the flat env planes instead (env_radiance).
       bins4: (B, 4) — env importance bins as rows.
       atlas_rows: (L*R*R, 3) — per-map fallback table.
     """
 
     mat_tex: Optional[torch.Tensor]
-    env6: torch.Tensor
+    env6: Optional[torch.Tensor]
     bins4: torch.Tensor
     atlas_rows: torch.Tensor
 
@@ -241,6 +261,9 @@ _MAT_TEX_BUDGET_BYTES = 2 * 1024 ** 3
 
 
 def _packed_tables(scene, cfg: RenderConfig, meta) -> TexTables:
+    """Built from the scene tensors inside every trace, never cached: the
+    tables are differentiable functions of the atlas and env parameters,
+    so each call's graph reaches the caller's leaves."""
     atlas_rows = torch.stack([scene.atlas_r, scene.atlas_g, scene.atlas_b],
                              dim=-1)
     r = meta.atlas_res
@@ -369,7 +392,8 @@ def _compact(state: PathState, key, it: int, w_out: int,
     u = stream_uniforms(key, stream_base + it, (1, w_in),
                         lane_offset=state.gid, key_rows=key_rows,
                         lanes_per_key=lanes_per_key)[0]
-    skey = torch.where(active, u, torch.full_like(u, 2.0))
+    # JAX :416
+    skey = torch.where(active, u.detach(), torch.full_like(u, 2.0))
     perm = torch.sort(skey, stable=True).indices
     new = _take(state, perm[:w_out])
     sel_drop = perm[w_out:]
@@ -394,7 +418,8 @@ def _sort_state(scene, state: PathState) -> PathState:
                        (hit_p.y - wmin[1]) / extent[1],
                        (hit_p.z - wmin[2]) / extent[2])
     key = torch.where(state.active, morton, torch.full_like(morton, 1 << 30))
-    return _take(state, torch.sort(key, stable=True).indices)
+    return _take(state, torch.sort(key.detach(),                # JAX :478
+                                   stable=True).indices)
 
 
 def _compact_groups(cfg: RenderConfig, n: int):
@@ -459,9 +484,17 @@ def _stack_stats(per_it):
     return tuple(torch.stack([p[i] for p in per_it]) for i in range(3))
 
 
+def _clip(x, lo: float, hi: float):
+    """jnp.clip as the JAX version computes it, minimum(maximum(x, lo), hi):
+    the same values as torch.clamp, and at a tie (a lane whose radiance
+    is exactly 0) the same half gradient, where torch.clamp passes all."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def _deposit(drops, state, n):
     """One scatter writes every framebuffer lane exactly once: the dropped
-    rows of every compaction plus the final survivors."""
+    rows of every compaction plus the final survivors.  As the indices are
+    unique, the write's backward is a gather of the output's gradient."""
     all_idx = torch.cat([d[0] for d in drops] + [state.lidx]).long()
     all_col = torch.cat([d[1] for d in drops] + [vec.to_array(state.color)])
     acc = torch.zeros((n, 3), dtype=torch.float32, device=all_col.device)
@@ -517,9 +550,7 @@ def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
         acc = _deposit(drops, state, n)
         c = V3(acc[:, 0], acc[:, 1], acc[:, 2])
 
-    radiance = V3(torch.clamp(c.x, 0.0, cfg.radiance_clamp),
-                  torch.clamp(c.y, 0.0, cfg.radiance_clamp),
-                  torch.clamp(c.z, 0.0, cfg.radiance_clamp))
+    radiance = V3(*(_clip(p, 0.0, cfg.radiance_clamp) for p in c))
     if not return_stats:
         return radiance
     n_active, n_shadow, visits = _stack_stats(per_it)
@@ -642,8 +673,7 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
     acc = _deposit(drops, state, n_tot)
 
     # per-sample radiance clamp, then sum over the batch
-    c = torch.clamp(acc.reshape(k_samples, n_per, 3), 0.0,
-                    cfg.radiance_clamp)
+    c = _clip(acc.reshape(k_samples, n_per, 3), 0.0, cfg.radiance_clamp)
     total = c.sum(dim=0)
     radiance = V3(total[:, 0], total[:, 1], total[:, 2])
     if not return_stats:
@@ -717,7 +747,12 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
             return sorted_intersect(scene, cfg, meta, o, d, a, tmax,
                                     any_hit=any_hit)
     active = s.active & (s.slot >= 0)
-    slot = torch.clamp(s.slot, min=0)
+    slot = torch.clamp(s.slot, min=0).detach()                  # JAX :870
+
+    def env_rad(d):
+        if tex.env6 is not None:
+            return env_radiance_rows(tex.env6, env_hw, d, scene.env_theta)
+        return env_radiance(scene.env_rgb, env_hw, d, scene.env_theta)
 
     # ---- gather hit attributes: ONE (N, 43) row gather -----------------
     row = attr[slot]
@@ -728,7 +763,7 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     emitt = col3(33)
     ior = row[:, 36]
     dielectric = row[:, 37]
-    bu, bv = s.bu, s.bv
+    bu, bv = s.bu.detach(), s.bv.detach()                       # JAX :886
     w0 = 1.0 - bu - bv
     tex_u = row[:, 27] * w0 + row[:, 29] * bu + row[:, 31] * bv
     tex_v = row[:, 28] * w0 + row[:, 30] * bu + row[:, 32] * bv
@@ -738,13 +773,13 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
 
     # ---- atlas fetches (tracer.fs:453-456) -----------------------------
     if tex.mat_tex is not None:
-        map_c = row[:, 42].to(torch.int32)
+        map_c = row[:, 42].detach().to(torch.int32)             # JAX :896
         tex_diffuse, tex_emissive, tn, mr = atlas_fetch_all(
             tex.mat_tex, meta, map_c, tex_u, tex_v)
     else:
         ar = tex.atlas_rows
-        fetch = lambda col: atlas_fetch_rgb(
-            meta, row[:, col].to(torch.int32), tex_u, tex_v, ar)
+        fetch = lambda col: atlas_fetch_rgb(                    # JAX :900-903
+            meta, row[:, col].detach().to(torch.int32), tex_u, tex_v, ar)
         tex_diffuse, tex_emissive = fetch(38), fetch(39)
         mr, tn = fetch(41), fetch(40)
     metallic, roughness = mr.x, mr.y * mr.y              # tracer.fs:457
@@ -779,21 +814,23 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     incident = -s.direction
 
     # ---- samples -------------------------------------------------------
-    micro_n = brdf.sample_microfacet(macro_n, roughness, u[0], u[1])
-    if cfg.nee_env_nearest:
+    micro_n = brdf.sample_microfacet(macro_n, roughness, u[0].detach(),
+                                     u[1].detach())              # JAX :941
+    if cfg.nee_env_nearest and tex.env6 is not None:
         env_dir, env_pdf, nee_rad = sample_env_bins_radiance(
             tex.bins4, tex.env6, scene.n_bins, env_hw, scene.env_theta,
-            u[2], u[3], u[4])
+            u[2].detach(), u[3].detach(), u[4].detach())         # JAX :948
     else:
         env_dir, env_pdf = sample_env_bins(
             tex.bins4, scene.n_bins, env_hw, scene.env_theta,
-            u[2], u[3], u[4])
+            u[2].detach(), u[3].detach(), u[4].detach())         # JAX :952
         nee_rad = None
+    env_dir = _sg(env_dir)                                       # JAX :954
     cos_env = dot(macro_n, env_dir)
 
     fresnel = brdf.schlick(incident, micro_n, n1, n2)
     p_specular = fresnel * (1.0 - metallic) + metallic   # mix(f, 1, metallic)
-    specular = p_specular > u[5]
+    specular = p_specular.detach() > u[5]                        # JAX :959
     refractive = ~specular & (dielectric >= 0.0)
 
     # specular branch
@@ -802,7 +839,8 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     spec_bsdf = (brdf.eval_specular(incident, macro_n, tex_diffuse, metallic,
                                     roughness, spec_dir)
                  * (torch.clamp(dot(macro_n, spec_dir), 0.0, 1.0)
-                    / torch.clamp(spec_pdf, min=1e-12)))
+                    / torch.clamp(spec_pdf.detach(),     # JAX :969
+                                  min=1e-12)))
     spec_env = (brdf.eval_specular(incident, macro_n, tex_diffuse, metallic,
                                    roughness, env_dir)
                 * (torch.clamp(cos_env, 0.0, 1.0) / env_pdf))
@@ -810,16 +848,18 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     # refraction branch
     refr_dir = brdf.refract(s.direction, micro_n, n1 / n2)
     # diffuse branch
-    diff_dir = brdf.sample_lambert(macro_n, u[6], u[7])
+    diff_dir = brdf.sample_lambert(macro_n, u[6].detach(),
+                                   u[7].detach())                # JAX :977
     diff_pdf = brdf.lambert_pdf(macro_n, diff_dir)
     diff_bsdf = (brdf.eval_lambert(tex_diffuse)
                  * (torch.clamp(dot(macro_n, diff_dir), 0.0, 1.0)
-                    / torch.clamp(diff_pdf, min=1e-12)))
+                    / torch.clamp(diff_pdf.detach(),     # JAX :981
+                                  min=1e-12)))
     diff_env = (brdf.eval_lambert(tex_diffuse)
                 * (torch.clamp(cos_env, 0.0, 1.0) / env_pdf))
 
     new_dir = where(specular, spec_dir, where(refractive, refr_dir, diff_dir))
-    new_dir = normalize(new_dir)
+    new_dir = _sg(normalize(new_dir))                            # JAX :986
     bsdf_pdf = torch.where(specular, spec_pdf,
                            torch.where(refractive, 1.0, diff_pdf))
     one = vec.splat(1.0, like=u[0])
@@ -835,7 +875,8 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
                 for c in (tex_diffuse.x, tex_diffuse.y, tex_diffuse.z)))
     bsdf_throughput = where(inside, beer, bsdf_throughput)
 
-    w_env, w_bsdf = brdf.mis_weights(env_pdf, bsdf_pdf)
+    w_env, w_bsdf = brdf.mis_weights(env_pdf,
+                                     bsdf_pdf.detach())          # JAX :1003
 
     # ---- traversal: unwanted lanes are parked above the scene ----------
     park = vec.splat(1.0e9, like=u[0])
@@ -857,12 +898,15 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
 
     if cfg.use_light_nee:
         last = scene.light_cdf.shape[0] - 1
-        li = torch.clamp(torch.searchsorted(scene.light_cdf, u[8]), 0, last)
+        li = torch.clamp(torch.searchsorted(scene.light_cdf,
+                                            u[8].detach()),      # JAX :1030
+                         0, last)
         lv0 = vec.gather(scene.light_v0, li)
         le1 = vec.gather(scene.light_e1, li)
         le2 = vec.gather(scene.light_e2, li)
-        su = torch.sqrt(u[9])
-        p_l = lv0 + le1 * (1.0 - su) + le2 * (u[10] * su)
+        su = torch.sqrt(u[9].detach())                           # JAX :1035
+        u10 = u[10].detach()                                     # JAX :1036
+        p_l = lv0 + le1 * (1.0 - su) + le2 * (u10 * su)
         to_l = p_l - offset_out
         dist2 = dot(to_l, to_l)
         dist = torch.sqrt(dist2)
@@ -893,9 +937,7 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     shadow_open = seg_slot(1) < 0
 
     # ---- NEE env contribution (tracer.fs:499-505) ----------------------
-    nee_L = (nee_rad if nee_rad is not None
-             else env_radiance_rows(tex.env6, env_hw, env_dir,
-                                    scene.env_theta))
+    nee_L = nee_rad if nee_rad is not None else env_rad(env_dir)
     nee = (s.throughput * env_throughput * nee_L * w_env)
     color = color + where(shadow_wanted & shadow_open, nee, zero)
 
@@ -911,7 +953,7 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
                          where(refractive, zero, diff_li))
         le = vec.gather(scene.emit, scene.light_slot[li].long())
         l_open = seg_slot(2) < 0
-        w_l, _ = brdf.mis_weights(pdf_l, bsdf_pdf)
+        w_l, _ = brdf.mis_weights(pdf_l, bsdf_pdf.detach())     # JAX :1101
         l_nee = s.throughput * light_tp * le * w_l
         color = color + where(light_wanted & l_open, l_nee, zero)
 
@@ -919,11 +961,11 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
 
     # ---- scatter-ray env hit (tracer.fs:509-512) -----------------------
     scat_miss = active & (nxt.slot < 0)
-    if cfg.escape_env_nearest:
+    if cfg.escape_env_nearest and tex.env6 is not None:
         esc_L = env_radiance_rows_nearest(tex.env6, env_hw, new_dir,
                                           scene.env_theta)
     else:
-        esc_L = env_radiance_rows(tex.env6, env_hw, new_dir, scene.env_theta)
+        esc_L = env_rad(new_dir)
     esc = throughput * esc_L * w_bsdf
     color = color + where(scat_miss, esc, zero)
 
@@ -948,7 +990,8 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
         color=color,
         bounces_used=bounces_used,
         active=still_active,
-        prev_pdf=torch.where(active & ~refractive, bsdf_pdf, s.prev_pdf),
+        prev_pdf=torch.where(active & ~refractive, bsdf_pdf.detach(),
+                             s.prev_pdf),                        # JAX :1138
         lidx=s.lidx, gid=s.gid,
     ), per_it
 
@@ -965,9 +1008,9 @@ def trace_heatmap(scene, cfg: RenderConfig, meta, origin: V3,
     does (no such budget on the card).  "packet" and "brute" keep their
     group-constant (or zero) counts, as in the JAX version."""
     if cfg.intersector in ("walk", "split"):
-        hit = packet_traverse3(
-            scene.pk_nodes, scene.pk_leaves, _contig(origin),
-            _contig(direction), leaf_size=meta.leaf_size,
+        hit = packet_traverse3(                                 # JAX :1160
+            scene.pk_nodes, scene.pk_leaves, _contig(_sg(origin)),
+            _contig(_sg(direction)), leaf_size=meta.leaf_size,
             stack_depth=max(cfg.stack_depth, meta.pk_stack_depth),
             tree_width=meta.bvh_width, lane_counts=True)
     else:

@@ -117,6 +117,64 @@ def test_env_nearest(r, sky):
     assert same.mean() >= 0.999, same.mean()
 
 
+def test_env_bilinear_wrap_x(r, sky):
+    """REPEAT in u (coordinates outside [0, 1) included), CLAMP_TO_EDGE in
+    v, GL LINEAR, from the flat planes."""
+    a, hw, _ = sky
+    u = r.uniform(-0.5, 1.5, N).astype(np.float32)
+    v = r.uniform(-0.2, 1.2, N).astype(np.float32)
+    _close(tenv.bilinear_wrap_x(TV3(*map(torch.from_numpy, a.env_rgb)), hw,
+                                _t(u), _t(v)),
+           jenv.bilinear_wrap_x(JV3(*map(jnp.asarray, a.env_rgb)), hw,
+                                _j(u), _j(v)))
+
+
+def test_env_radiance(r, sky):
+    """The flat-plane lookup against the JAX one, and against the packed
+    table's (the same bilinear math in another association)."""
+    a, hw, _ = sky
+    d = _unit(r)
+    theta = np.float32(0.37)
+    planes = TV3(*map(torch.from_numpy, a.env_rgb))
+    ours = tenv.env_radiance(planes, hw, _t(d), torch.tensor(theta))
+    _close(ours, jenv.env_radiance(JV3(*map(jnp.asarray, a.env_rgb)), hw,
+                                   _j(d), jnp.float32(theta)))
+    _close(ours, tenv.env_radiance_rows(tenv.pack_env_rows(planes, hw), hw,
+                                        _t(d), torch.tensor(theta)))
+
+
+def test_env_fallback_without_table(monkeypatch):
+    """With no packed env table (tex.env6 None) shading filters the flat
+    env planes, as the JAX version's fallback does: the image equals the
+    one made with the table up to that association (env radiance enters
+    no branch).  The nearest-texel options need the table, so they fall
+    back to the bilinear lookup too."""
+    import dataclasses
+
+    from fspt_tpu_torch.config import RenderConfig
+    from fspt_tpu_torch.core import integrator, rng
+    from fspt_tpu_torch.testing import make_test_scene as tscene
+    scene = tscene(subdivisions=1, textured=True)
+    arrays = scene.to_torch("cpu")
+    cfg = RenderConfig(width=16, height=16, bounces=3, intersector="brute",
+                       nee_env_nearest=True, escape_env_nearest=True)
+    key = rng.sample_key(rng.key(3), 0)
+    o, d = tcam.generate_rays(
+        torch.tensor(scene.camera.position),
+        torch.tensor(scene.camera.direction), scene.camera.fov_scale,
+        1e6, 0.0, (16, 16), rng.stream_uniforms(key, 0, (4, 256)))
+    bilinear = dataclasses.replace(cfg, nee_env_nearest=False,
+                                   escape_env_nearest=False)
+    with torch.no_grad():
+        ref = integrator.trace_paths(arrays, bilinear, scene.meta, o, d, key)
+        shade = integrator._shade_and_scatter
+        monkeypatch.setattr(
+            integrator, "_shade_and_scatter",
+            lambda *a: shade(*a[:-1], a[-1]._replace(env6=None)))
+        ours = integrator.trace_paths(arrays, cfg, scene.meta, o, d, key)
+    _close(tuple(ours), tuple(ref))
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_sample_env_bins(r, sky, fused):
     a, hw, bins = sky

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from fspt_tpu_torch.config import PostConfig, RenderConfig
+from fspt_tpu_torch.ops.traverse3 import packet_traverse3
 from fspt_tpu_torch.ops.traverse4 import packet_traverse4
 from fspt_tpu_torch.runtime.renderer import Renderer
 from fspt_tpu_torch.testing import make_test_scene
@@ -95,6 +96,21 @@ def test_checkpoint_resume_bit_identical(tmp_path):
                  device="cpu").load_checkpoint(path)
 
 
+def _deterministic_cfg(**kw):
+    # tests/test_render.py test_render_deterministic's configuration
+    return RenderConfig(width=32, height=24, bounces=2,
+                        extra_refraction_iters=1, batch_spp=1, seed=5, **kw)
+
+
+def test_render_deterministic():
+    """Two renders of one seed are bit-equal (tests/test_render.py)."""
+    scene = make_test_scene(subdivisions=2)
+    cfg = _deterministic_cfg()
+    a = Renderer(scene, cfg, device="cpu").step(2).hdr_image()
+    b = Renderer(scene, cfg, device="cpu").step(2).hdr_image()
+    np.testing.assert_array_equal(a, b)
+
+
 def test_cpu_render_launches_no_kernel():
     """The CPU path runs the traversal's plain version; only a kernel
     launch on a card counts."""
@@ -132,3 +148,20 @@ def test_cuda_render_matches_cpu():
     a, b = gpu.hdr_image(), cpu.hdr_image()
     err = np.abs(a - b) / (1.0 + np.abs(b))
     assert np.mean(err < 2e-3) >= 0.995
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intersector", ["walk", "split"])
+def test_cuda_render_deterministic(intersector):
+    """Two renders of one seed on the card are bit-equal, through the
+    kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = make_test_scene(subdivisions=2)
+    cfg = _deterministic_cfg(intersector=intersector)
+    kernel = packet_traverse4 if intersector == "split" else packet_traverse3
+    before = kernel.launches
+    a = Renderer(scene, cfg, device="cuda").step(2).hdr_image()
+    b = Renderer(scene, cfg, device="cuda").step(2).hdr_image()
+    assert kernel.launches > before
+    np.testing.assert_array_equal(a, b)

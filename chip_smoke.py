@@ -106,10 +106,46 @@ Phases (one line each; any failure raises and exits non-zero):
      env texels against a central difference (h=5e-3, bound 2e-2 relative,
      as tests/test_grad_fd.py), and one step under the default
      configuration ("walk"), fspt_walk3's launches counted.
+ 17. refit and animate: the bench scene with the bunny an animated prop
+     keyframed over frames 0-3 (`anim_scene_dict`: a translation, a
+     rotation about y, a uniform scale).  Per frame: `refit_arrays` from the
+     base frame's tables on the card (median of 3, synchronised around
+     each) against the host rebuild (`load_scene_dict` + `to_torch`);
+     traverse4 on the refit tables against its plain version on the
+     frame's 262,144 primary rays and its bounce-0 launch, bit-equal; the
+     same primary rays on the refit and the rebuilt tables, the original
+     triangles (through each build's `slot_tri`) equal but for ties at
+     equal t (1e-5 relative) and for leaks through an edge (at most 1e-4
+     of the rays, each the refit tables' own nearest hit by brute force,
+     the vertices of the two builds within 1e-5); walk3 (the --no-compact
+     configuration's kernel) on the refit tables finding traverse4's slots
+     up to ties at equal t; mean visits a ray on both; the stack and
+     backstop flags read.  Then `render_animation` with refit=True and
+     refit=False over frames 0-2 at 512x512, 8 bounces, the bench
+     configuration, 8 spp a frame (one batch, a checkpoint after it):
+     ms a frame, traverse4's launches a frame against
+     `traversal_launches`, and each frame's PNGs within
+     tests/test_refit.py's bounds (mean |diff| < 2/255, 99th percentile
+     <= 4/255).  Then `python -m fspt_tpu_torch animate` of a tiny
+     keyframed scene, --end 2, with and without --refit, in a subprocess;
+ 18. view: `InteractiveViewer` on the card over the bench scene under the
+     bench configuration, headless: the first frame; a drag (look events
+     at 20 Hz from a thread) until previews arrive, with each event's
+     time; `moveend` until a progressive frame; an envTheta restart; ms a
+     preview and a full frame from the renderers' own step times;
+     traverse4's launches over the phase; then `serve` on a free loopback
+     port: GET / (the page), POST /input (204), GET /frame (a PNG with
+     X-Meta).  Every wait has its own deadline (28 s in all);
+ 19. profile: `Renderer.profile_trace` of one bench step (8 spp) into
+     OUT_DIR/profile: the trace's kernel events, traverse4's among them
+     (one a launch), their summed device time against the step's wall time
+     from its `Renderer.step` span (the device's busy share), and the five
+     kernels with the most device time; the trace is kept gzipped.
 Then one JSON line with the kernels' numbers (each row with its bound from
 ops/traverse.py `traversal_bound`, computed from this run's visit counts and
 the valid children and real triangles those visits tested, and its launches
-per step), the card's name and power limit, and last the
+per step; traverse4's row also its launches a refit animation frame of phase
+17 and over phase 18's viewer), the card's name and power limit, and last the
 result line.  Images go to OUT_DIR (below).
 
     python3 chip_smoke.py --kernels-only
@@ -125,6 +161,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -690,6 +727,498 @@ def phase_train(scene, smi):
         ms=f"{wms:.2f}", walk3_launches=wlaunches,
         expected_launches=wexpected, card=repr(smi))
 
+
+# ---- 17-19: refit and animate, view, profile ------------------------------
+
+ANIM_FRAMES = 4          # frames 0-3 of the keyframes below, refit per frame
+
+
+def anim_scene_dict(subdivisions=6):
+    """make_bunny_standin_scene's scene (fspt_tpu_torch/testing.py) as a
+    dict and its assets, with the bunny an animated prop keyframed over
+    frames 0-3: a translation, a rotation about y and a uniform scale."""
+    from fspt_tpu_torch.testing import (DictAssetLoader, checker_texture,
+                                        icosphere_obj, quad_obj, sky_rgbe)
+    loader = DictAssetLoader(
+        texts={"bunny.obj": icosphere_obj(subdivisions),
+               "floor.obj": quad_obj()},
+        images={"sky.rgbe.png": sky_rgbe(1024, 512),
+                "checker.png": checker_texture(256)})
+    sd = {
+        "environment": "sky.rgbe.png",
+        "environmentTheta": 1.66,
+        "cameraPos": [-0.751, 0.665, 1.82],
+        "cameraDir": [0.304, -0.489, -0.818],
+        "samples": 2000,
+        "atlasRes": 256,
+        "props": [
+            {"path": "floor.obj", "scale": 4,
+             "translate": [0, -0.75, 0], "diffuse": "checker.png",
+             "metallicRoughness": [0.0, 0.5, 0.0], "normals": "flat"},
+        ],
+        "animated_props": [
+            {"path": "bunny.obj", "scale": 0.35, "translate": [0.1, -0.2, 0],
+             "diffuse": [1, 1, 1], "metallicRoughness": [0, 0.1, 0],
+             "ior": 1.4, "normals": "smooth",
+             "keyframes": [
+                 {"frame": 0, "translate": [0.1, -0.2, 0.0], "scale": 0.35,
+                  "rotate": [{"axis": [0, 1, 0], "angle": 0.0}]},
+                 {"frame": ANIM_FRAMES - 1, "translate": [0.35, -0.12, -0.25],
+                  "scale": 0.42,
+                  "rotate": [{"axis": [0, 1, 0], "angle": 0.9}]}]},
+        ],
+    }
+    return sd, loader
+
+
+def phase_refit(cfg, smi):
+    """17. refit and animate (see the module docstring).  Returns
+    traverse4's launches a refit animation frame; raises on a failure."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from fspt_tpu_torch.core import integrator, rng
+    from fspt_tpu_torch.core.camera import generate_rays
+    from fspt_tpu_torch.io.image import read_png
+    from fspt_tpu_torch import RenderConfig
+    from fspt_tpu_torch.ops.traverse import check_stack_overflow
+    from fspt_tpu_torch.ops.traverse3 import packet_traverse3
+    from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
+                                              packet_traverse4_reference)
+    from fspt_tpu_torch.runtime.animation import (render_animation,
+                                                  scene_for_frame)
+    from fspt_tpu_torch.runtime.layout import tile_order
+    from fspt_tpu_torch.runtime.renderer import CameraState
+    from fspt_tpu_torch.scene.refit import (aux_to, build_refit_aux,
+                                            delta_affines, refit_arrays)
+    from fspt_tpu_torch.scene.schema import (_prop_defaults, load_scene_dict,
+                                             merge_scene_props)
+    dev = torch.device("cuda:0")
+    size = cfg.width
+    n = size * size
+    sd, loader = anim_scene_dict()
+    props = lambda d: [_prop_defaults(p) for p in merge_scene_props(d)]
+    walk_cfg = RenderConfig(width=size, height=size, bounces=cfg.bounces,
+                            extra_refraction_iters=0, intersector="walk")
+
+    t0 = time.perf_counter()
+    base_sd = scene_for_frame(sd, 0)
+    base = load_scene_dict(base_sd, loader, name="anim_base")
+    aux = aux_to(build_refit_aux(base), dev)
+    base_arrays = base.to_torch(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    meta = base.meta
+    cam = CameraState.from_config(base.camera, dev)
+    pixel_idx = torch.from_numpy(tile_order(size, size)).to(dev)
+    k0 = rng.fold_in(rng.sample_key(rng.key(cfg.seed), 0), 0)
+    o, d = generate_rays(cam.position, cam.direction, cam.fov_scale,
+                         cam.focal_depth, cam.aperture, (size, size),
+                         rng.stream_uniforms(k0, 0, (4, n), device=dev),
+                         pixel_idx=pixel_idx)
+    base_tri = torch.from_numpy(base.build["slot_tri"]).to(dev)
+    pristine = base_arrays.pk_leaves.clone()
+    # one refit under the profiler: its kernels and their device time
+    from torch.profiler import ProfilerActivity, profile
+    trace = os.path.join(OUT_DIR, "refit_trace.json")
+    mats1, trans1 = delta_affines(props(base_sd), props(scene_for_frame(
+        sd, 1)), sd.get("worldTransforms"))
+    refit_arrays(base_arrays, meta, aux, mats1, trans1)      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        refit_arrays(base_arrays, meta, aux, mats1, trans1)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    os.remove(trace)
+    say("refit_setup", triangles=base.num_triangles,
+        binary_nodes=base_arrays.node_left.shape[0],
+        levels=len(aux.levels), slots=base_arrays.pk_leaves.shape[0]
+        * base.leaf_size, node_rows=base_arrays.pk_nodes.shape[0],
+        leaf_rows=base_arrays.pk_leaves.shape[0],
+        compile_and_upload_s=f"{setup_s:.3f}", refit_kernels=len(kernels),
+        refit_device_ms=f"{sum(e['dur'] for e in kernels) / 1e3:.3f}")
+
+    for frame in range(ANIM_FRAMES):
+        fsd = scene_for_frame(sd, frame)
+        mats, trans = delta_affines(props(base_sd), props(fsd),
+                                    sd.get("worldTransforms"))
+        refit_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ra = refit_arrays(base_arrays, meta, aux, mats, trans)
+            torch.cuda.synchronize()
+            refit_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        rebuilt = load_scene_dict(fsd, loader, name=f"anim_f{frame}")
+        ba = rebuilt.to_torch(dev)
+        torch.cuda.synchronize()
+        rebuild_ms = (time.perf_counter() - t0) * 1e3
+
+        # traverse4 on the refit tables: the frame's primary launch and
+        # its bounce-0 launch, kernel against plain version
+        with torch.no_grad():
+            calls = capture_launches(
+                integrator, "packet_traverse4",
+                lambda: integrator.trace_paths(ra, cfg, meta, o, d, k0))
+        torch.cuda.synchronize()
+        check_stack_overflow(dev)
+        for label, (args, kw) in (("primary", calls[0]),
+                                  ("bounce0", calls[1])):
+            compare(f"refit frame {frame} {label}", packet_traverse4(
+                *args, **kw), packet_traverse4_reference(*args, **kw))
+        # the same primary rays on the refit and the rebuilt tables: the
+        # same original triangles, up to coplanar or edge ties
+        hr = integrator.intersect(ra, cfg, meta, o, d)
+        hb = integrator.intersect(ba, cfg, rebuilt.meta, o, d)
+        # walk3 (the --no-compact configuration) on the refit tables: the
+        # slots traverse4 finds, up to ties at equal t
+        walk_before = packet_traverse3.launches
+        hw = integrator.intersect(ra, walk_cfg, meta, o, d)
+        torch.cuda.synchronize()
+        check_stack_overflow(dev)
+        walk_ties = int((hw.slot != hr.slot).sum())
+        if not (packet_traverse3.launches == walk_before + 1 and bool(
+                ((hw.slot == hr.slot) | torch.isclose(
+                    hw.t, hr.t, rtol=1e-6, atol=0.0)).all())):
+            raise AssertionError(f"refit frame {frame}: walk3 and traverse4 "
+                                 "disagree on the refit tables")
+        reb_tri = torch.from_numpy(rebuilt.build["slot_tri"]).to(dev)
+        tr = torch.where(hr.slot >= 0, base_tri[hr.slot.clamp(min=0)], -1)
+        tb = torch.where(hb.slot >= 0, reb_tri[hb.slot.clamp(min=0)], -1)
+        differ = tr != tb
+        tie = differ & (tr >= 0) & (tb >= 0) & torch.isclose(
+            hr.t, hb.t, rtol=1e-5, atol=0.0)
+        apart = torch.nonzero(differ & ~tie).flatten()
+        # a ray that differs at other t must differ by geometry, not by the
+        # refit tree: refit's edges are M @ e where the rebuild's are
+        # differences of transformed vertices, so a shared edge opens by
+        # ulps and a ray exactly on it can leak through.  Its hit must be
+        # the nearest of the refit tables' own triangles (brute force), and
+        # the nearer of the two hits lie at an edge.
+        bt, bs = brute_force(ra, torch.stack(list(o), -1)[apart],
+                             torch.stack(list(d), -1)[apart],
+                             torch.full((apart.numel(),), 1e5, device=dev))
+        own = (bs == hr.slot[apart].long()) | torch.isclose(
+            bt, hr.t[apart], rtol=1e-6, atol=0.0)
+        near_r = (tr >= 0) & ((tb < 0) | (hr.t < hb.t))
+        edge = lambda h: torch.minimum(torch.minimum(h.u, h.v),
+                                       1.0 - h.u - h.v)
+        at_edge = torch.where(near_r, edge(hr), edge(hb))[apart]
+        # the refit's vertices against the rebuild's, triangle by triangle
+        verts = lambda a, st: torch.zeros(
+            (base.num_triangles, 3, 3), device=dev).index_copy_(
+            0, st[st >= 0], torch.stack(
+                [a.tri_v0, a.tri_v0 + a.tri_e1, a.tri_v0 + a.tri_e2],
+                1)[st >= 0])
+        vdiff = float((verts(ra, base_tri) - verts(ba, reb_tri)).abs().max())
+        say("refit", frame=frame, refit_ms=f"{float(np.median(refit_ms)):.3f}",
+            refit_first_ms=f"{refit_ms[0]:.3f}",
+            rebuild_ms=f"{rebuild_ms:.1f}", primary_rays=n,
+            hits=int((tr >= 0).sum()), differ=int(differ.sum()),
+            ties=int(tie.sum()), leaks=apart.numel(),
+            leaks_own_nearest=int(own.sum()),
+            leak_max_edge_bary=(f"{float(at_edge.max()):.2e}"
+                                if apart.numel() else "-"),
+            vertex_max_abs_diff=f"{vdiff:.2e}",
+            visits_refit=f"{hr.visits.float().mean().item():.3f}",
+            visits_rebuild=f"{hb.visits.float().mean().item():.3f}",
+            kernel_vs_plain="bit-equal primary,bounce0",
+            walk3_vs_traverse4=f"equal but {walk_ties} ties",
+            stack_flags="clear", card=repr(smi))
+        if not (bool(own.all()) and apart.numel() <= n // 10000
+                and vdiff < 1e-5):
+            raise AssertionError(
+                f"refit frame {frame}: {apart.numel()} rays hit other "
+                f"triangles at other t than on the rebuilt tables (1e-4 of "
+                f"the rays allowed), {int((~own).sum())} of them not the "
+                f"refit tables' nearest; vertices {vdiff} apart")
+        del ra, ba, rebuilt
+    if not torch.equal(base_arrays.pk_leaves, pristine):
+        raise AssertionError("refit wrote into the base frame's tables")
+
+    # render_animation: refit and rebuild over the same 3 frames, 8 spp a
+    # frame (one batch of cfg.batch_spp = 8, a checkpoint after it)
+    expected = integrator.traversal_launches(cfg, n, cfg.batch_spp)
+    frames = {}
+    for refit in (True, False):
+        out_dir = os.path.join(OUT_DIR,
+                               "anim_refit" if refit else "anim_rebuild")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        packet_traverse4.launches = 0
+        marks = [(time.perf_counter(), 0)]
+        spp = []
+
+        def on_frame(frame, path, r):
+            marks.append((time.perf_counter(), packet_traverse4.launches))
+            spp.append(int(float(r.count)))
+
+        paths = render_animation(sd, loader, out_dir, range(3), config=cfg,
+                                 samples=cfg.batch_spp, checkpoint_every=1,
+                                 on_frame=on_frame, name="anim",
+                                 refit=refit, device="cuda")
+        ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+        launches = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
+        if launches != [expected] * 3 or spp != [cfg.batch_spp] * 3:
+            raise AssertionError(f"animate refit={refit}: traverse4 launched "
+                                 f"{launches} times a frame (expected "
+                                 f"{expected}), samples {spp}")
+        frames[refit] = paths
+        per_frame = launches[0]
+        say("animate_frames", refit=refit, size=f"{size}x{size}",
+            bounces=cfg.bounces, spp_per_frame=cfg.batch_spp,
+            ms_per_frame=",".join(f"{x:.1f}" for x in ms),
+            mean_ms_per_frame_after_first=f"{float(np.mean(ms[1:])):.1f}",
+            traverse4_launches_per_frame=launches[0],
+            expected_launches=expected, card=repr(smi))
+    worst_mean = worst_p99 = 0.0
+    for pa, pb in zip(frames[True], frames[False]):
+        diff = np.abs(read_png(pa) - read_png(pb))
+        worst_mean = max(worst_mean, float(diff.mean()))
+        worst_p99 = max(worst_p99, float(np.quantile(diff, 0.99)))
+    say("animate", frames=3, png_mean_abs_diff=f"{worst_mean:.6f}",
+        png_mean_bound=f"{2 / 255:.6f}", png_p99_abs_diff=f"{worst_p99:.6f}",
+        png_p99_bound=f"{4 / 255:.6f}",
+        pngs=os.path.relpath(os.path.dirname(frames[True][0]), HERE),
+        card=repr(smi))
+    if not (worst_mean < 2 / 255 and worst_p99 <= 4 / 255):
+        raise AssertionError(f"animate: refit frames differ from rebuild "
+                             f"frames by mean {worst_mean}, p99 {worst_p99}")
+
+    # the command line, in a subprocess: a tiny keyframed scene, 2 frames
+    from fspt_tpu_torch.testing import icosphere_obj, quad_obj
+    cli_dir = os.path.join(OUT_DIR, "cli_animate")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    os.makedirs(cli_dir)
+    for name, text in (("mesh.obj", icosphere_obj(2)),
+                       ("floor.obj", quad_obj())):
+        with open(os.path.join(cli_dir, name), "w") as f:
+            f.write(text)
+    scene_path = os.path.join(cli_dir, "scene.json")
+    with open(scene_path, "w") as f:
+        json.dump({"environment": [[0.2, 0.2, 0.3], [0.9, 0.9, 0.8]],
+                   "cameraPos": [0, 0.4, 2.2],
+                   "cameraDir": [0, -0.18, -0.98],
+                   "props": [{"path": "floor.obj", "scale": 6,
+                              "translate": [0, -0.5, 0],
+                              "diffuse": [0.6, 0.6, 0.6]}],
+                   "animated_props": [
+                       {"path": "mesh.obj", "scale": 0.5,
+                        "diffuse": [0.8, 0.3, 0.2],
+                        "keyframes": [
+                            {"frame": 0, "translate": [-0.4, 0, 0]},
+                            {"frame": 1, "translate": [0.4, 0.1, 0],
+                             "rotate": [{"axis": [0, 1, 0],
+                                         "angle": 0.7}]}]}]}, f)
+    for flags in ([], ["--refit"]):
+        out = os.path.join(cli_dir, "frames_refit" if flags else "frames")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fspt_tpu_torch", "animate", scene_path,
+             "--end", "2", "--res", "64", "--samples", "4", *flags,
+             "-o", out], cwd=HERE, capture_output=True, text=True,
+            timeout=300)
+        pngs = sorted(f for f in os.listdir(out)) if os.path.isdir(out) \
+            else []
+        if proc.returncode != 0 or pngs != ["frame_00000.png",
+                                            "frame_00001.png"]:
+            raise AssertionError(f"CLI animate {flags} failed "
+                                 f"({proc.returncode}, {pngs}):\n"
+                                 f"{proc.stderr}")
+        say("cli_animate", flags=" ".join(flags) or "(default)",
+            rc=proc.returncode, seconds=f"{time.perf_counter() - t0:.2f}",
+            frames=len(pngs), out=os.path.relpath(out, HERE))
+    return per_frame
+
+
+def _next_frame(v, last_id, deadline, want=lambda meta: True):
+    """The first frame after `last_id` that `want` accepts, by the
+    deadline."""
+    while time.perf_counter() < deadline:
+        png, meta, fid = v.frame_png()
+        if fid != last_id and png:
+            if want(meta):
+                return png, meta, fid
+            last_id = fid
+        time.sleep(0.01)
+    raise AssertionError("view: no frame by the phase's deadline")
+
+
+def phase_view(scene, cfg, smi):
+    """18. view (see the module docstring).  Returns traverse4's launches
+    over the headless part; raises on a failure."""
+    import socket
+    import urllib.request
+
+    import torch
+    from fspt_tpu_torch.ops.traverse4 import packet_traverse4
+    from fspt_tpu_torch.runtime.viewer import InteractiveViewer
+    t_phase = time.perf_counter()
+    packet_traverse4.launches = 0
+    v = InteractiveViewer(scene, cfg, device="cuda")
+    try:
+        v.start()
+        png, meta, fid = _next_frame(v, -1, time.perf_counter() + 8)
+        first_s = time.perf_counter() - t_phase
+        # a drag: look events at 20 Hz from a thread of their own, as the
+        # page posts them, until the loop has served previews
+        dragging, event_ms = threading.Event(), []
+
+        def drag():
+            while dragging.is_set():
+                t0 = time.perf_counter()
+                v.handle_event({"type": "look", "dx": 2, "dy": 1})
+                event_ms.append((time.perf_counter() - t0) * 1e3)
+                time.sleep(0.05)
+
+        dragging.set()
+        dragger = threading.Thread(target=drag, daemon=True)
+        dragger.start()
+        try:
+            deadline = time.perf_counter() + 6
+            png, meta, fid = _next_frame(v, fid, deadline,
+                                         lambda m: m["preview"])
+            previews = 1
+            for _ in range(4):                   # a few more while moving
+                png, meta, fid = _next_frame(v, fid, deadline)
+                previews += meta["preview"]
+        finally:
+            dragging.clear()
+            dragger.join(timeout=2)
+        # release: autofocus, then progressive frames
+        v.handle_event({"type": "moveend"})
+        png, meta, fid = _next_frame(
+            v, fid, time.perf_counter() + 4,
+            lambda m: not m["preview"] and m["samples"] >= 2)
+        settled = meta["samples"]
+        # envTheta restarts the accumulation
+        v.handle_event({"type": "slider", "name": "envTheta", "value": 2.0})
+        png, meta, fid = _next_frame(
+            v, fid, time.perf_counter() + 4,
+            lambda m: not m["preview"] and m["samples"] == cfg.batch_spp)
+        theta = (float(v.renderer.arrays.env_theta),
+                 float(v.preview.arrays.env_theta))
+        if theta != (2.0, 2.0):
+            raise AssertionError(f"view: env_theta {theta} after the slider")
+    finally:
+        v.stop()
+    if v._thread.is_alive():
+        raise AssertionError("view: the render loop did not stop")
+    launches = packet_traverse4.launches
+    # a frame is one step of the renderer that made it
+    frames = lambda r: r.stats["samples"] / r.cfg.batch_spp
+    ms = lambda r: r.stats["seconds"] * 1e3 / frames(r)
+    say("view", size=f"{cfg.width}x{cfg.height}",
+        preview=f"{v.preview.cfg.width}x{v.preview.cfg.height}",
+        first_frame_s=f"{first_s:.3f}",
+        full_frames=f"{frames(v.renderer):.0f}",
+        ms_per_full_frame=f"{ms(v.renderer):.1f}",
+        preview_frames=f"{frames(v.preview):.0f}",
+        previews_of_5_while_moving=previews, look_events=len(event_ms),
+        max_event_ms=f"{max(event_ms):.2f}",
+        ms_per_preview_frame=f"{ms(v.preview):.1f}",
+        settled_samples=settled, restart_samples=meta["samples"],
+        traverse4_launches=launches, card=repr(smi))
+    if not launches > 0:
+        raise AssertionError("view: traverse4 was never launched")
+
+    # the HTTP routes, on a free loopback port
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    threading.Thread(target=v.serve, kwargs=dict(port=port),
+                     daemon=True).start()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.perf_counter() + 4
+        while True:
+            try:
+                page = urllib.request.urlopen(url + "/", timeout=2).read()
+                break
+            except OSError:
+                if time.perf_counter() > deadline:
+                    raise
+                time.sleep(0.1)
+        req = urllib.request.Request(
+            url + "/input", method="POST",
+            data=json.dumps({"type": "zoom", "delta": 100}).encode())
+        status = urllib.request.urlopen(req, timeout=5).status
+        _next_frame(v, -1, time.perf_counter() + 2)
+        r = urllib.request.urlopen(url + "/frame", timeout=5)
+        body, ctype = r.read(), r.headers["Content-Type"]
+        meta = json.loads(r.headers["X-Meta"])
+    finally:
+        v.stop()
+    if not (b"fspt_tpu viewer" in page and status == 204
+            and ctype == "image/png" and body[:4] == b"\x89PNG"):
+        raise AssertionError(f"view HTTP: page {len(page)} B, POST "
+                             f"{status}, frame {ctype} {len(body)} B")
+    say("view_http", get_page_bytes=len(page), post_input=status,
+        frame_type=ctype, frame_bytes=len(body), x_meta=json.dumps(meta),
+        phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    del v
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_profile(scene, cfg, smi):
+    """19. profile (see the module docstring).  Raises on a failure."""
+    import glob
+    import gzip
+    import shutil
+
+    import torch
+    from fspt_tpu_torch import Renderer
+    from fspt_tpu_torch.ops.traverse4 import packet_traverse4
+    r = Renderer(scene, cfg, device="cuda")
+    r.step()                                      # warm-up
+    logdir = os.path.join(OUT_DIR, "profile")
+    shutil.rmtree(logdir, ignore_errors=True)
+    packet_traverse4.launches = 0
+    t0 = time.perf_counter()
+    r.profile_trace(logdir, 1)
+    profiled_s = time.perf_counter() - t0
+    launches = packet_traverse4.launches
+    path, = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    mb = os.path.getsize(path) / 1e6
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    step, = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == "Renderer.step"]
+    walk4 = [e for e in kernels if "walk4_kernel" in e["name"]]
+    busy_us = sum(e["dur"] for e in kernels)
+    names = {}
+    for e in kernels:
+        names[e["name"]] = names.get(e["name"], 0) + e["dur"]
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+    # the trace is tens of MB; keep it compressed
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(path)
+    say("profile", size=f"{cfg.width}x{cfg.height}", spp=cfg.batch_spp,
+        bounces=cfg.bounces, kernel_events=len(kernels),
+        traverse4_events=len(walk4), traverse4_launches=launches,
+        kernel_ms=f"{busy_us / 1e3:.3f}",
+        traverse4_ms=f"{sum(e['dur'] for e in walk4) / 1e3:.3f}",
+        step_wall_ms=f"{step['dur'] / 1e3:.3f}",
+        busy_share=f"{busy_us / step['dur']:.4f}",
+        profiled_s=f"{profiled_s:.2f}", trace_mb=f"{mb:.1f}",
+        trace=os.path.relpath(path + ".gz", HERE), card=repr(smi))
+    for name, us in top:
+        say("profile_top", kernel=repr(name[:90]), ms=f"{us / 1e3:.3f}",
+            share_of_kernel_time=f"{us / busy_us:.4f}")
+    if not (walk4 and len(walk4) == launches > 0):
+        raise AssertionError(f"profile: {len(walk4)} traverse4 kernel "
+                             f"events for {launches} launches in the trace")
+    del r
+    torch.cuda.synchronize()
 
 def main(kernels_only=False):
     if not os.path.isdir(os.path.join(HERE, "fspt_tpu_torch")):
@@ -1274,6 +1803,16 @@ def main(kernels_only=False):
     phase_train(scene, smi)
     check_stack_overflow(dev)
 
+    # ---- 17. refit and animate ----------------------------------------------
+    animate_launches = phase_refit(cfg, smi)
+
+    # ---- 18. view -----------------------------------------------------------
+    view_launches = phase_view(scene, cfg, smi)
+
+    # ---- 19. profile --------------------------------------------------------
+    phase_profile(scene, cfg, smi)
+    check_stack_overflow(dev)
+
     # ---- the kernels and the result --------------------------------------
     # library_ms is null in every row: no PyTorch call computes a BVH
     # traversal.  bound_ms: ops/traverse.py `traversal_bound` on this run's
@@ -1311,8 +1850,11 @@ def main(kernels_only=False):
     per_step = lambda c: integrator.traversal_launches(c, n, c.batch_spp)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
-        row("traverse4", "fspt_tpu_torch/csrc/traverse4.cu",
-            "fspt_tpu/ops/traverse4.py:60", split_launches, per_step(cfg)),
+        {**row("traverse4", "fspt_tpu_torch/csrc/traverse4.cu",
+               "fspt_tpu/ops/traverse4.py:60", split_launches,
+               per_step(cfg)),
+         "animate_launches_per_frame": animate_launches,
+         "view_launches": view_launches},
         row("walk3", "fspt_tpu_torch/csrc/walk.cu",
             "fspt_tpu/ops/traverse3.py:64", walk_launches,
             per_step(walk_cfg)),

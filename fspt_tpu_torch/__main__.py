@@ -2,14 +2,15 @@
 fspt_tpu's CLI, on one CUDA device).
 
   render   one still image (mode=render / mode=test via --mode)
+  animate  render a frame sequence (the reference's frame=N loop)
+  view     interactive fly-through viewer over HTTP
   diff     compare two renders (the reference's tools/ page)
   info     scene statistics (tri/BVH/atlas/env summary)
 
-The arguments and the configurations they build are fspt_tpu's: `render`
-uses the production estimator (compaction, state sort, the "split" kernel,
-nearest-env fusion), and `--no-compact` the exact-replay one ("walk", no
-compaction, per-launch sort).  `animate` and `view` are not ported yet
-(ROADMAP A13, A14).
+The arguments and the configurations they build are fspt_tpu's: `render`,
+`animate` and `view` use the production estimator (compaction, state sort,
+the "split" kernel, nearest-env fusion), and `--no-compact` the
+exact-replay one ("walk", no compaction, per-launch sort).
 """
 
 from __future__ import annotations
@@ -45,25 +46,31 @@ def _add_render_args(p):
                         "and on by default for rendering)")
 
 
+def _config(args, mode="render"):
+    """The production configuration, or the exact-replay one under
+    --no-compact."""
+    from fspt_tpu_torch.config import RenderConfig, resolution_from_spec
+    w, h = resolution_from_spec(args.res)
+    return RenderConfig(width=w, height=h, bounces=args.bounces,
+                        batch_spp=args.batch_spp, mode=mode, seed=args.seed,
+                        compact=not args.no_compact,
+                        sort_state=not args.no_compact,
+                        intersector=("split" if not args.no_compact
+                                     else "walk"),
+                        nee_env_nearest=not args.no_compact,
+                        escape_env_nearest=not args.no_compact)
+
+
 def _build(args, device="cuda"):
     """(scene, Renderer) for the parsed arguments.  `device` is for the
     tests, which render on the CPU; the command line always takes the
     card."""
-    from fspt_tpu_torch.config import (PostConfig, RenderConfig,
-                                       resolution_from_spec)
+    from fspt_tpu_torch.config import PostConfig
     from fspt_tpu_torch.runtime.renderer import Renderer
     from fspt_tpu_torch.scene.schema import load_scene_file
 
-    w, h = resolution_from_spec(args.res)
     scene = load_scene_file(args.scene)
-    cfg = RenderConfig(width=w, height=h, bounces=args.bounces,
-                       batch_spp=args.batch_spp, mode=args.mode,
-                       seed=args.seed, compact=not args.no_compact,
-                       sort_state=not args.no_compact,
-                       intersector=("split" if not args.no_compact
-                                    else "walk"),
-                       nee_env_nearest=not args.no_compact,
-                       escape_env_nearest=not args.no_compact)
+    cfg = _config(args, mode=args.mode)
     post = None
     if args.denoise or args.exposure is not None:
         post = PostConfig(
@@ -100,6 +107,36 @@ def cmd_render(args, device="cuda") -> int:
     return 0
 
 
+def cmd_animate(args, device="cuda") -> int:
+    import os
+    from fspt_tpu_torch.runtime.animation import render_animation
+    from fspt_tpu_torch.scene.schema import AssetLoader
+
+    with open(args.scene) as f:
+        scene_dict = json.load(f)
+    loader = AssetLoader(os.path.dirname(os.path.abspath(args.scene)))
+    paths = render_animation(
+        scene_dict, loader, args.out_dir,
+        range(args.start, args.end), config=_config(args),
+        samples=args.samples,
+        name=os.path.splitext(os.path.basename(args.scene))[0],
+        refit=args.refit, device=device)
+    print("\n".join(paths))
+    return 0
+
+
+def cmd_view(args, device="cuda") -> int:
+    """Interactive fly-through viewer (reference main.js:619-739,838-857)."""
+    scene, r = _build(args, device=device)
+    from fspt_tpu_torch.runtime.viewer import InteractiveViewer
+    v = InteractiveViewer(scene, r.cfg, post=r.post, device=device)
+    if args.autofocus:
+        v.renderer.autofocus()
+        v.preview.camera = v.renderer.camera
+    v.serve(port=args.port, host=args.host)
+    return 0
+
+
 def cmd_info(args) -> int:
     from fspt_tpu_torch.scene.schema import load_scene_file
     scene = load_scene_file(args.scene)
@@ -131,6 +168,24 @@ def main(argv=None) -> int:
     _add_render_args(pr)
     pr.add_argument("-o", "--out", default="out.png")
     pr.set_defaults(fn=cmd_render)
+
+    pa = sub.add_parser("animate", help="render a frame sequence")
+    _add_render_args(pa)
+    pa.add_argument("--start", type=int, default=0)
+    pa.add_argument("--end", type=int, required=True)
+    pa.add_argument("-o", "--out-dir", default="frames")
+    pa.add_argument("--refit", action="store_true",
+                    help="transform-only frames: skip the per-frame host "
+                         "scene rebuild and refit the BVH on the device "
+                         "(scene/refit.py; falls back to rebuild when the "
+                         "scene uses `normalize`)")
+    pa.set_defaults(fn=cmd_animate)
+
+    pv = sub.add_parser("view", help="interactive fly-through viewer")
+    _add_render_args(pv)
+    pv.add_argument("--port", type=int, default=8787)
+    pv.add_argument("--host", default="127.0.0.1")
+    pv.set_defaults(fn=cmd_view)
 
     pd = sub.add_parser("diff", help="compare two renders")
     pd.set_defaults(fn=None)

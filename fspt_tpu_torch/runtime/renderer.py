@@ -273,6 +273,24 @@ class Renderer:
             s["spp_per_s"] = s["samples"] / s["seconds"]
         return s
 
+    def profile_trace(self, logdir: str, num_batches: int = 1):
+        """Capture a torch.profiler trace of `num_batches` sample steps into
+        `logdir` as a Chrome trace (`*.pt.trace.json`, viewable in
+        TensorBoard or chrome://tracing): the host's ops, and on the card
+        every kernel of the process, the traversal kernels launched through
+        ctypes included.  The steps are one `Renderer.step` span."""
+        from torch.profiler import (ProfilerActivity, profile,
+                                    record_function,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(logdir)):
+            with record_function("Renderer.step"):
+                self.step(num_batches)
+        return self
+
     @torch.no_grad()
     def step_metrics(self, sample_idx: int = 0):
         """Per-bounce metrics for one unbatched sample: occupancy (live

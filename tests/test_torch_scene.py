@@ -5,11 +5,15 @@ fspt_tpu's host modules cannot be imported without JAX
 (fspt_tpu/__init__.py imports the renderer, and scene/schema.py imports
 core.vec), so the port carries copies.  These tests hold the copies to the
 originals: sources equal up to the import rewrite, byte-identical
-SceneArrays and an equal SceneMeta, and a lossless carry onto torch.  A
-subprocess with JAX blocked imports the port and renders one step under
-"split", one under the default config ("walk") and one heatmap step.
+SceneArrays and an equal SceneMeta, and a lossless carry onto torch.
+Modules that mix host and device code (scene/refit.py, runtime/animation.py,
+runtime/viewer.py) carry copies of their host functions and constants, each
+held to its original the same way.  A subprocess with JAX blocked imports
+the port (the refit, animation and viewer modules too) and renders one step
+under "split", one under the default config ("walk") and one heatmap step.
 """
 
+import ast
 import dataclasses
 import os
 import re
@@ -64,6 +68,37 @@ def test_host_copy_matches_original(rel):
     if rel == "scene/schema.py":
         orig, port = _drop_device_handoff(orig), _drop_device_handoff(port)
     assert port == orig, f"{rel} drifted from fspt_tpu/{rel}"
+
+
+# functions and constants copied out of modules whose device code the port
+# re-writes: (module, top-level name)
+COPIED_DEFS = (
+    [("scene/refit.py", n) for n in ("RefitAux", "prop_affine",
+                                     "build_refit_aux", "delta_affines")]
+    + [("runtime/animation.py", n) for n in ("_lerp", "interpolate_keyframes",
+                                             "scene_for_frame")]
+    + [("runtime/viewer.py", n) for n in ("_rotate_y", "_rotate_axis",
+                                          "_PAGE")])
+
+
+def _top_level_source(pkg, rel, name):
+    src = _read(pkg, rel)
+    for node in ast.parse(src).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names = [node.name]
+        else:
+            names = [t.id for t in getattr(node, "targets", [])
+                     if isinstance(t, ast.Name)]
+        if name in names:
+            return ast.get_source_segment(src, node)
+    raise AssertionError(f"{pkg}/{rel} defines no {name}")
+
+
+@pytest.mark.parametrize("rel,name", COPIED_DEFS)
+def test_host_function_copy_matches_original(rel, name):
+    orig = _rewrite_imports(_top_level_source("fspt_tpu", rel, name))
+    assert _top_level_source("fspt_tpu_torch", rel, name) == orig, (
+        f"{name} of {rel} drifted from fspt_tpu/{rel}")
 
 
 def test_port_has_no_jax_import():
@@ -132,6 +167,8 @@ def test_port_renders_with_jax_blocked():
         "import numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
         "import fspt_tpu_torch as ft\n"
+        "import fspt_tpu_torch.scene.refit, fspt_tpu_torch.runtime.animation\n"
+        "import fspt_tpu_torch.runtime.viewer, fspt_tpu_torch.__main__\n"
         "from fspt_tpu_torch.testing import make_test_scene\n"
         "scene = make_test_scene(subdivisions=1)\n"
         "for kw in (dict(intersector='split'), dict(), "

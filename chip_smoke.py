@@ -140,12 +140,41 @@ Phases (one line each; any failure raises and exits non-zero):
      OUT_DIR/profile: the trace's kernel events, traverse4's among them
      (one a launch), their summed device time against the step's wall time
      from its `Renderer.step` span (the device's busy share), and the five
-     kernels with the most device time; the trace is kept gzipped.
+     kernels with the most device time; the trace is kept gzipped;
+ 20. dist (parallel/): the bench scene at 512x512 under the bench
+     configuration without the cross-sample batch and with the default
+     compaction schedule (`dist_cfg`: "split", 8 bounces, compact,
+     sort_state, nearest env, 2 spp a step).  [dist_render]: an 8-shard
+     mesh held by this process on the one card, 2 steps, each pixel
+     against `Renderer.step` of the same configuration (rtol 1e-5, atol
+     1e-6; the bit-equal share and the largest difference printed), the
+     sum of the shards' rays against the renderer's honest rays, the
+     balance efficiency at 8, traverse4's launches a step against 8 x
+     `traversal_launches` of a shard, ms a step; [dist_walk]: one 8-shard
+     step under "walk", each pixel against `Renderer.step` under "walk"
+     with the same bounds, fspt_walk3's launches counted; then shard 0's
+     primary launch of each (traverse4 and walk3 at the shard's 32,768
+     rays) held bit for bit to its plain version; [dist_scaling]:
+     `measure_scaling` at 1, 2, 4, 8 shards, 1 step each, and its table
+     (the shards of one process run one after another on one card, so its
+     wall-clock is informational); then jobs of subprocess ranks through
+     `multihost.initialize` on free loopback ports, all at once, each rank
+     `python3 chip_smoke.py --dist-worker ...` (torch and fspt_tpu_torch
+     only): [dist_group] two ranks on the one card over gloo (NCCL refuses
+     two ranks on one card), [dist_nccl] one NCCL rank, and where the
+     machine has two cards or more, two NCCL ranks, one a card.  Each rank
+     renders the sharded 512² step (1 spp) over the global mesh and takes
+     one train step there; its gathered image must equal the one-process
+     mesh of the same size bit for bit, its loss and gradients within rtol
+     1e-5 of it (the backward's scatter-adds are not ordered on the card).
+     A job that fails or passes its deadline (150 s) fails the run.  With
+     one card it prints {"cards": 1, "cross_card": "not run"}.
 Then one JSON line with the kernels' numbers (each row with its bound from
 ops/traverse.py `traversal_bound`, computed from this run's visit counts and
 the valid children and real triangles those visits tested, and its launches
 per step; traverse4's row also its launches a refit animation frame of phase
-17 and over phase 18's viewer), the card's name and power limit, and last the
+17 and over phase 18's viewer, traverse4's and walk3's rows their launches a
+sharded step of phase 20), the card's name and power limit, and last the
 result line.  Images go to OUT_DIR (below).
 
     python3 chip_smoke.py --kernels-only
@@ -601,9 +630,9 @@ def check_image(r, label, size):
 # plain gradient descent on env_rgb and emit in phase 16.  The loss is a
 # quadratic of those two fields (they enter no branch); on the card the
 # loss along the first step's gradient, L0 - lr*a + lr**2*b/2, fitted from
-# rates 25 and 50, has a = 0.050 and b = 0.014 (PERF.md, train step), so it
-# falls for lr < 2a/b = 7 and most at 3.5.  1.0 leaves room for
-# directions more curved than the gradient's.
+# rates 25 and 50, has a = 0.050 and b = 0.014 (PERF_FINDINGS_ARCHIVE.md,
+# the train step's Findings), so it falls for lr < 2a/b = 7 and most at
+# 3.5.  1.0 leaves room for directions more curved than the gradient's.
 TRAIN_LR = 1.0
 
 
@@ -1220,6 +1249,363 @@ def phase_profile(scene, cfg, smi):
     del r
     torch.cuda.synchronize()
 
+
+# ---- 20: dist -------------------------------------------------------------
+
+DIST_SHARDS = 8          # the [dist_render] mesh, held by this process
+DIST_DEADLINE_S = 150    # a subprocess job of [dist_group] / [dist_nccl]
+
+
+def dist_cfg(batch_spp):
+    """The bench configuration without the cross-sample batch (the
+    sharded step has none, as the reference's), under the default
+    compaction schedule: the bench's (1.5, 11, ...) is set for batch_spp x
+    N lanes, and on one sample's N it drops lanes by Russian roulette at
+    bounce 0 (175,104 lanes for ~177,860 primary hits), which reweights
+    every lane of the launch, so no per-pixel comparison of a mesh with one
+    device could hold."""
+    from fspt_tpu_torch import RenderConfig
+    return RenderConfig(width=512, height=512, bounces=8,
+                        extra_refraction_iters=0, batch_spp=batch_spp,
+                        compact=True, sort_state=True, intersector="split",
+                        nee_env_nearest=True, escape_env_nearest=True)
+
+
+def dist_render(scene, cfg, mesh, steps):
+    """`steps` sharded sample steps over `mesh` -> (the gathered (3, N)
+    image in pixel-id order, the per-step (size,) shard_rays, ms a step)."""
+    import numpy as np
+    import torch
+    from fspt_tpu_torch.core import rng
+    from fspt_tpu_torch.parallel.dist import (gather_accum,
+                                              make_sharded_sample_step,
+                                              shard_accum)
+    from fspt_tpu_torch.runtime.renderer import CameraState
+    dev = mesh.device
+    step = make_sharded_sample_step(mesh, cfg, scene.meta)
+    arrays = scene.to_torch(dev)
+    cam = CameraState.from_config(scene.camera, dev)
+    n = cfg.width * cfg.height
+    accum = shard_accum(torch.zeros((3, n)), mesh)
+    count = torch.zeros((), device=dev)
+    rays, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        # the step waits for its kernels (it reads the stack-overflow flag)
+        accum, count, shard_rays = step(arrays, cam, accum, count,
+                                        rng.key(cfg.seed), i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rays.append(shard_rays.cpu().numpy())
+    img = np.zeros((3, n), np.float32)
+    img[:, step.pixel_order] = gather_accum(accum, mesh).cpu().numpy()
+    return img, rays, ms
+
+
+def dist_train(scene, cfg, mesh):
+    """One train step over `mesh` as phase 16 takes its first: the target
+    the step's own render at the scene's parameters, env_rgb and emit at
+    half of theirs -> [loss, every gradient leaf] as numpy."""
+    from fspt_tpu_torch.core import rng
+    from fspt_tpu_torch.parallel.dist import (make_train_step,
+                                              params_to_torch, split_params)
+    from fspt_tpu_torch.runtime.renderer import CameraState
+    dev = mesh.device
+    step = make_train_step(cfg, scene.meta, mesh=mesh)
+    arrays = scene.to_torch(dev)
+    cam = CameraState.from_config(scene.camera, dev)
+    host = split_params(scene.arrays)
+    cam_params = params_to_torch({"position": scene.camera.position,
+                                  "direction": scene.camera.direction}, dev)
+    target = step.render(params_to_torch(host, dev), cam_params, arrays, cam,
+                         rng.key(0), 0)
+    start = dict(host, env_rgb=tuple(0.5 * p for p in host["env_rgb"]),
+                 emit=tuple(0.5 * p for p in host["emit"]))
+    loss, grads, cam_grads = step(params_to_torch(start, dev), cam_params,
+                                  arrays, cam, target, rng.key(0), 0)
+    return [loss.cpu().numpy()] + [
+        p.cpu().numpy() for g in list(grads.values())
+        + list(cam_grads.values()) for p in (g if isinstance(g, tuple)
+                                             else (g,))]
+
+
+def dist_worker(port, rank, world, backend, outdir):
+    """A rank of a [dist_group] / [dist_nccl] job (`python3 chip_smoke.py
+    --dist-worker PORT RANK WORLD BACKEND OUTDIR`): the sharded 512² step
+    over the global mesh, its image gathered, and one train step; written
+    to OUTDIR/rank<RANK>.npz for the parent to compare.  Imports torch and
+    fspt_tpu_torch only."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from fspt_tpu_torch.parallel import multihost
+    from fspt_tpu_torch.testing import make_bunny_standin_scene
+    rank, world = int(rank), int(world)
+    if world > 1:
+        multihost.initialize(f"127.0.0.1:{port}", world, rank,
+                             backend=backend)
+    else:
+        # initialize() leaves a one-process job without a group; this one
+        # wants the group, to run the collectives on one rank
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                                f"{port}", world_size=1, rank=0)
+    try:
+        scene = make_bunny_standin_scene(subdivisions=6)
+        mesh = multihost.global_mesh()
+        if mesh.size != world or mesh.group is None:
+            raise AssertionError(f"rank {rank}: mesh {mesh}")
+        img, rays, _ = dist_render(scene, dist_cfg(1), mesh, 1)
+        train = dist_train(scene, dist_cfg(1), mesh)
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), img, rays[0],
+                 *train)
+    finally:
+        dist.destroy_process_group()
+    if "jax" in sys.modules:
+        raise AssertionError("the dist worker imported jax")
+
+
+def spawn_dist(world, backend, outdir):
+    """Start a job of `world` dist_worker processes on a free loopback
+    port; returns the processes."""
+    import socket
+    os.makedirs(outdir, exist_ok=True)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = []
+    for rank in range(world):
+        with open(os.path.join(outdir, f"rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 str(port), str(rank), str(world), backend, outdir],
+                cwd=HERE, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish_dist(label, procs, outdir, deadline):
+    """Wait for a job by `deadline` (killing every process past it) and
+    return each rank's results; raises if a rank failed or was late."""
+    import numpy as np
+    late = False
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            late = True
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if late or failed:
+        logs = ""
+        for r in range(len(procs)):
+            with open(os.path.join(outdir, f"rank{r}.log")) as f:
+                logs += f"--- rank {r}\n" + f.read()[-3000:]
+        raise AssertionError(f"{label}: ranks {failed} failed, late={late}"
+                             f"\n{logs}")
+    out = []
+    for r in range(len(procs)):
+        with np.load(os.path.join(outdir, f"rank{r}.npz")) as z:
+            out.append([z[f"arr_{i}"] for i in range(len(z.files))])
+    return out
+
+
+def check_dist(label, ranks, ref, smi, **kv):
+    """Every rank's image bit-equal to the one-process mesh's and its
+    shard_rays equal; its loss and finite gradients within rtol 1e-5 of
+    the one-process step's (the backward's scatter-adds are not ordered on
+    the card), and its non-finite gradients where the one-process step has
+    them, with the same values."""
+    import numpy as np
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        if not (np.array_equal(res[0], ref[0])
+                and np.array_equal(res[1], ref[1])):
+            raise AssertionError(
+                f"{label}: rank {r}'s image is not the one-process mesh's "
+                f"(max |diff| {np.abs(res[0] - ref[0]).max()}, rays "
+                f"{res[1]} against {ref[1]})")
+        for i, (a, b) in enumerate(zip(res[2:], ref[2:])):
+            fin = np.isfinite(b)
+            if not (np.array_equal(np.isfinite(a), fin)
+                    and np.array_equal(a[~fin], b[~fin], equal_nan=True)
+                    and np.allclose(a[fin], b[fin], rtol=1e-5, atol=1e-9)):
+                raise AssertionError(f"{label}: rank {r}'s train step "
+                                     f"differs from the one-process mesh's "
+                                     f"at leaf {i} (the loss is leaf 0)")
+            nz = fin & (b != 0)
+            if nz.any():
+                worst = max(worst, float(
+                    (np.abs(a[nz] - b[nz]) / np.abs(b[nz])).max()))
+    say(label, ranks=len(ranks), image="bit-equal", shard_rays="equal",
+        loss=f"{float(ranks[0][2]):.6f}", train_max_rel_diff=f"{worst:.3g}",
+        train_bound="rtol 1e-5",
+        nonfinite_gradients=sum(int((~np.isfinite(b)).sum())
+                                for b in ref[3:]), **kv, card=repr(smi))
+
+
+def phase_dist(scene, smi):
+    """20. dist (see the module docstring).  Returns the traverse4 and the
+    walk3 launches of a sharded step.  Raises on a failure."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fspt_tpu_torch import RenderConfig, Renderer
+    from fspt_tpu_torch.core import integrator
+    from fspt_tpu_torch.ops.traverse3 import (packet_traverse3,
+                                              packet_traverse3_reference)
+    from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
+                                              packet_traverse4_reference)
+    from fspt_tpu_torch.parallel.dist import make_mesh
+    from fspt_tpu_torch.parallel.scaling import measure_scaling
+    t_phase = time.perf_counter()
+    cfg = dist_cfg(2)
+    n = cfg.width * cfg.height
+    local = n // DIST_SHARDS
+    mesh = make_mesh(DIST_SHARDS)
+
+    # [dist_render]: the 8-shard mesh against Renderer.step, 2 steps each
+    r = Renderer(scene, cfg, device="cuda")
+    r.step(2)
+    single = np.zeros((3, n), np.float32)
+    single[:, r.pixel_idx.cpu().numpy()] = r.accum.cpu().numpy()
+    packet_traverse4.launches = 0
+    held = []
+    t4_calls = capture_launches(integrator, "packet_traverse4", lambda: (
+        held.append(dist_render(scene, cfg, mesh, 2))))
+    img, rays, ms = held[0]
+    launches = packet_traverse4.launches // 2
+    t4_primary = t4_calls[0]        # shard 0's primary rays, sample 0
+    del t4_calls
+    expected = DIST_SHARDS * integrator.traversal_launches(
+        cfg, local, cfg.batch_spp)
+    close = np.isclose(img, single, rtol=1e-5, atol=1e-6)
+    total = float(sum(x.sum() for x in rays))
+    last = rays[-1]
+    balance = float(last.sum() / (DIST_SHARDS * last.max()))
+    say("dist_render", shards=DIST_SHARDS, size=f"{cfg.width}x{cfg.height}",
+        spp_per_step=cfg.batch_spp, steps=2,
+        bit_equal_share=f"{float(np.mean(img == single)):.6f}",
+        within_bound_share=f"{float(close.mean()):.6f}",
+        max_abs_diff=f"{float(np.abs(img - single).max()):.3g}",
+        bound="rtol 1e-5 atol 1e-6", shard_rays_sum=f"{total:.0f}",
+        renderer_rays=f"{r.stats['rays']:.0f}",
+        balance_efficiency=f"{balance:.4f}", traverse4_launches=launches,
+        expected_launches=expected, ms_per_step=f"{ms[1]:.2f}",
+        first_step_ms=f"{ms[0]:.2f}", card=repr(smi))
+    if not close.all():
+        raise AssertionError(f"dist_render: {int((~close).sum())} values "
+                             "outside rtol 1e-5, atol 1e-6 of Renderer.step")
+    if not abs(total - r.stats["rays"]) <= 1e-6 * r.stats["rays"]:
+        raise AssertionError(f"dist_render: shard rays {total} against the "
+                             f"renderer's {r.stats['rays']}")
+    if launches * 2 != packet_traverse4.launches or launches != expected:
+        raise AssertionError(f"dist_render: traverse4 launched "
+                             f"{packet_traverse4.launches} times in 2 steps, "
+                             f"expected {expected} a step")
+    del r
+
+    # one 8-shard step under the default "walk", fspt_walk3's launches
+    wcfg = RenderConfig(width=cfg.width, height=cfg.height, bounces=8,
+                        extra_refraction_iters=0, intersector="walk")
+    packet_traverse3.launches = 0
+    held = []
+    w_calls = capture_launches(integrator, "packet_traverse3", lambda: (
+        held.append(dist_render(scene, wcfg, mesh, 1))))
+    wimg, _, wms = held[0]
+    walk_launches = packet_traverse3.launches
+    w_primary = w_calls[0]
+    del w_calls
+    wexpected = DIST_SHARDS * integrator.traversal_launches(wcfg, local, 1)
+    r = Renderer(scene, wcfg, device="cuda")
+    r.step(1)
+    wsingle = np.zeros((3, n), np.float32)
+    wsingle[:, r.pixel_idx.cpu().numpy()] = r.accum.cpu().numpy()
+    del r
+    wclose = np.isclose(wimg, wsingle, rtol=1e-5, atol=1e-6)
+    say("dist_walk", shards=DIST_SHARDS, size=f"{wcfg.width}x{wcfg.height}",
+        spp=1, bit_equal_share=f"{float(np.mean(wimg == wsingle)):.6f}",
+        within_bound_share=f"{float(wclose.mean()):.6f}",
+        max_abs_diff=f"{float(np.abs(wimg - wsingle).max()):.3g}",
+        bound="rtol 1e-5 atol 1e-6", walk3_launches=walk_launches,
+        expected_launches=wexpected, ms_per_step=f"{wms[0]:.2f}",
+        card=repr(smi))
+    if not wclose.all():
+        raise AssertionError(f"dist_walk: {int((~wclose).sum())} values "
+                             "outside rtol 1e-5, atol 1e-6 of Renderer.step "
+                             "under \"walk\"")
+    if walk_launches != wexpected:
+        raise AssertionError(f"dist_walk: {walk_launches} walk3 launches "
+                             f"(expected {wexpected})")
+
+    # shard 0's primary launch of each kernel at the shard's shapes, held
+    # bit for bit to its plain version (after the counts were read: these
+    # launches are not the path's)
+    check_launch("traverse4 dist shard0 primary", packet_traverse4,
+                 packet_traverse4_reference, *t4_primary)
+    check_launch("walk3 dist shard0 primary", packet_traverse3,
+                 packet_traverse3_reference, *w_primary)
+    del t4_primary, w_primary
+
+    # [dist_scaling]
+    report = measure_scaling(scene, dist_cfg(1), device_counts=(1, 2, 4, 8),
+                             steps=1, warmup=1)
+    if [p.n_devices for p in report.points] != [1, 2, 4, 8]:
+        raise AssertionError(f"dist_scaling: points {report.points}")
+    print(report.table(), flush=True)
+    say("dist_scaling", shards="1,2,4,8",
+        balance_efficiency=",".join(f"{p.balance_efficiency:.4f}"
+                                    for p in report.points),
+        ms_per_step=",".join(f"{p.seconds * 1e3:.2f}"
+                             for p in report.points),
+        rays_per_step=",".join(f"{p.rays:.0f}" for p in report.points),
+        wall_clock="informational: the shards of one process run one after "
+        "another on one card", card=repr(smi))
+
+    # [dist_group], [dist_nccl]: jobs of ranks in subprocesses, all at
+    # once; this process makes their one-process references meanwhile
+    work = tempfile.mkdtemp(prefix="dist_",
+                            dir=os.path.join(HERE, "fspt_tpu_torch",
+                                             "_build"))
+    cards = torch.cuda.device_count()
+    jobs = {"dist_group": (2, "gloo"), "dist_nccl": (1, "nccl")}
+    if cards >= 2:
+        jobs["dist_nccl_cross_card"] = (2, "nccl")
+    deadline = time.perf_counter() + DIST_DEADLINE_S
+    procs = {label: spawn_dist(world, backend, os.path.join(work, label))
+             for label, (world, backend) in jobs.items()}
+    try:
+        refs = {}
+        for size in (1, 2):
+            img, rays, _ = dist_render(scene, dist_cfg(1), make_mesh(size),
+                                       1)
+            refs[size] = [img, rays[0]] + dist_train(scene, dist_cfg(1),
+                                                     make_mesh(size))
+        for label, (world, backend) in jobs.items():
+            ranks = finish_dist(label, procs[label],
+                                os.path.join(work, label), deadline)
+            check_dist(label, ranks, refs[world], smi, backend=backend,
+                       mesh=world,
+                       cards=min(world, cards) if backend == "nccl" else 1)
+    finally:
+        for p in (p for job in procs.values() for p in job):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if cards < 2:
+        print(json.dumps({"cards": cards, "cross_card": "not run"}),
+              flush=True)
+    shutil.rmtree(work)
+    say("dist_summary", phase_s=f"{time.perf_counter() - t_phase:.2f}",
+        cards=cards)
+    return launches, walk_launches
+
+
 def main(kernels_only=False):
     if not os.path.isdir(os.path.join(HERE, "fspt_tpu_torch")):
         raise SystemExit("chip_smoke.py: fspt_tpu_torch/ is not beside this "
@@ -1813,6 +2199,10 @@ def main(kernels_only=False):
     phase_profile(scene, cfg, smi)
     check_stack_overflow(dev)
 
+    # ---- 20. dist -----------------------------------------------------------
+    dist_launches, dist_walk_launches = phase_dist(scene, smi)
+    check_stack_overflow(dev)
+
     # ---- the kernels and the result --------------------------------------
     # library_ms is null in every row: no PyTorch call computes a BVH
     # traversal.  bound_ms: ops/traverse.py `traversal_bound` on this run's
@@ -1854,10 +2244,12 @@ def main(kernels_only=False):
                "fspt_tpu/ops/traverse4.py:60", split_launches,
                per_step(cfg)),
          "animate_launches_per_frame": animate_launches,
-         "view_launches": view_launches},
-        row("walk3", "fspt_tpu_torch/csrc/walk.cu",
-            "fspt_tpu/ops/traverse3.py:64", walk_launches,
-            per_step(walk_cfg)),
+         "view_launches": view_launches,
+         "dist_launches_per_step": dist_launches},
+        {**row("walk3", "fspt_tpu_torch/csrc/walk.cu",
+               "fspt_tpu/ops/traverse3.py:64", walk_launches,
+               per_step(walk_cfg)),
+         "dist_launches_per_step": dist_walk_launches},
         row("walk1", "fspt_tpu_torch/csrc/walk1.cu",
             "fspt_tpu/ops/traverse.py:243", packet_launches, per_step(pcfg)),
         study_row("walk5", "bounce0", "fspt_tpu_torch/csrc/walk5.cu",
@@ -1877,4 +2269,7 @@ def main(kernels_only=False):
 
 
 if __name__ == "__main__":
-    main(kernels_only=sys.argv[1:] == ["--kernels-only"])
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(*sys.argv[2:])
+    else:
+        main(kernels_only=sys.argv[1:] == ["--kernels-only"])

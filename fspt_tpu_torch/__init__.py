@@ -11,7 +11,13 @@ Public API:
     fspt_tpu_torch.load_scene_dict(d, loader) / load_scene_file(path)
     fspt_tpu_torch.Renderer(scene, config, device="cuda")
     fspt_tpu_torch.render(scene, config, device="cuda")
-    fspt_tpu_torch.parallel.dist.make_train_step(config, meta, device="cuda")
+    fspt_tpu_torch.parallel.dist.make_train_step(config, meta, device="cuda",
+                                                 mesh=None)
+    fspt_tpu_torch.parallel.dist.make_mesh(num_devices, device="cuda") /
+        make_sharded_sample_step(mesh, config, meta) / shard_accum /
+        gather_accum
+    fspt_tpu_torch.parallel.multihost.initialize() / global_mesh()
+    fspt_tpu_torch.parallel.scaling.measure_scaling(scene, config)
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,4 @@
-"""Training across devices (port of fspt_tpu.parallel): the differentiable
-train step of parallel/dist.py, on one device so far."""
+"""Distribution layer (port of fspt_tpu.parallel) over torch.distributed:
+meshes of shards over the ranks of a process group, the sharded sample
+step, the train step with its gradient all-reduce (dist.py), the process
+group's bring-up (multihost.py) and the scaling meter (scaling.py)."""

@@ -54,8 +54,12 @@ Phases (one line each; any failure raises and exits non-zero):
      under "split" and under the default "walk", and heatmap.npy
      (tests/test_goldens.py's 5% bound);
   8. bench: the bench configuration ("split") at 512x512, 8 bounces, 8 spp
-     per step — one warm-up step, then 4 timed steps with the kernel's
-     launch count reset before and read after; rays/s, ms/sample,
+     per step, timed by fspt_tpu_torch/bench.py's own functions — one
+     warm-up step, then BENCH_STEPS steps each timed alone with the
+     kernel's launch count reset before and read after each (`time_steps`;
+     `summarize` raises unless every step launched traverse4
+     `traversal_launches` times); rays/s, the median, min and max
+     ms/sample, and bench.py's JSON line under a [bench_json] tag; the
      per-bounce occupancy; the image must be finite and non-zero;
   9. walk bench: the CLI's --no-compact configuration ("walk", no
      compaction, per-launch sort) at 512x512, 8 bounces, 8 spp per step —
@@ -169,13 +173,26 @@ Phases (one line each; any failure raises and exits non-zero):
      1e-5 of it (the backward's scatter-adds are not ordered on the card).
      A job that fails or passes its deadline (150 s) fails the run.  With
      one card it prints {"cards": 1, "cross_card": "not run"}.
+ 21. perf_phase (fspt_tpu_torch/scripts/perf_phase.py): the per-phase
+     replay of one unbatched 512x512 sample, under the bench configuration
+     at 1 spp ("split", the state sort: traverse4) and under the script's
+     own configuration ("walk": walk3), each through `perf_phase.main`
+     with the kernel's launch count reset before and read after: the
+     replay is held bit for bit to `trace_paths`, under "split" every
+     captured launch to its plain version (under "walk" those runs take
+     ~40 s and are left to the standalone script: `plain=False`), and the
+     [phase] rows and [phase_total] lines
+     give each phase's wall ms, device ms and kernels; then the captured
+     bounce-0 launch of each through `check_launch` (nearest, any-hit,
+     clipped, bit-equal), its tally equal to the replay's, and a
+     [phase_summary] line each.
 Then one JSON line with the kernels' numbers (each row with its bound from
 ops/traverse.py `traversal_bound`, computed from this run's visit counts and
 the valid children and real triangles those visits tested, and its launches
 per step; traverse4's row also its launches a refit animation frame of phase
 17 and over phase 18's viewer, traverse4's and walk3's rows their launches a
-sharded step of phase 20), the card's name and power limit, and last the
-result line.  Images go to OUT_DIR (below).
+sharded step of phase 20 and over phase 21), the card's name and power
+limit, and last the result line.  Images go to OUT_DIR (below).
 
     python3 chip_smoke.py --kernels-only
 
@@ -195,7 +212,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
-BENCH_SCHEDULE = (1.5, 11, 48, 160, 640, 2048, 2048, 2048)
+BENCH_STEPS = 8          # phase 8's timed steps (fspt_tpu_torch/bench.py's)
 
 
 def say(phase, **kv):
@@ -641,6 +658,7 @@ def phase_train(scene, smi):
     import numpy as np
     import torch
     from fspt_tpu_torch import RenderConfig
+    from fspt_tpu_torch.bench import bench_config
     from fspt_tpu_torch.core import integrator, rng
     from fspt_tpu_torch.core.vec import V3
     from fspt_tpu_torch.ops.traverse3 import packet_traverse3
@@ -651,11 +669,7 @@ def phase_train(scene, smi):
     size = 512
     n = size * size
     dev = torch.device("cuda:0")
-    cfg = RenderConfig(width=size, height=size, bounces=8,
-                       extra_refraction_iters=0, batch_spp=1, compact=True,
-                       sort_state=True, intersector="split",
-                       nee_env_nearest=True, escape_env_nearest=True,
-                       compact_schedule=BENCH_SCHEDULE)
+    cfg = bench_config(size, 1)
     arrays = scene.to_torch(dev)
     cam = CameraState.from_config(scene.camera, dev)
     host = split_params(scene.arrays)
@@ -1606,6 +1620,58 @@ def phase_dist(scene, smi):
     return launches, walk_launches
 
 
+# ---- 21: perf_phase --------------------------------------------------------
+
+def phase_perf(scene, smi):
+    """21. perf_phase (see the module docstring).  Returns {kernel name:
+    its launches over the phase's run of perf_phase.main}.  Raises on a
+    failure."""
+    import torch
+    from fspt_tpu_torch.bench import bench_config
+    from fspt_tpu_torch.ops.traverse3 import (packet_traverse3,
+                                              packet_traverse3_reference)
+    from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
+                                              packet_traverse4_reference)
+    from fspt_tpu_torch.scripts import perf_phase
+    t_phase = time.perf_counter()
+    launches = {}
+    # the plain versions' runs of every launch only under "split" (~5 s):
+    # under "walk" they take ~45 s, and the standalone script gives them
+    for name, cfg, fn, ref_fn, plain in (
+            ("traverse4", bench_config(512, 1), packet_traverse4,
+             packet_traverse4_reference, True),
+            ("walk3", None, packet_traverse3, packet_traverse3_reference,
+             False)):
+        t0 = time.perf_counter()
+        fn.launches = 0
+        res = perf_phase.main(cfg, "cuda", scene=scene, plain=plain)
+        launches[name] = fn.launches
+        if not launches[name] > res["launches"] > 0:
+            raise AssertionError(f"perf_phase: {name} launched "
+                                 f"{launches[name]} times")
+        main_s = time.perf_counter() - t0
+        # the captured bounce-0 launch, and the replay's tally of it
+        args, kw = res["calls"][1]
+        counts = {}
+        check_launch(f"{name} perf_phase bounce0", fn, ref_fn, args, kw,
+                     counts=counts)
+        if plain and counts != res["table"][1]["counts"]:
+            raise AssertionError(f"perf_phase: {name} bounce-0 tally "
+                                 f"{res['table'][1]['counts']} != {counts}")
+        full, parts = (res["totals"][p] for p in ("trace_paths",
+                                                  "sum_of_phases"))
+        say("phase_summary", kernel=name, launches=launches[name],
+            capture_launches=res["launches"],
+            trace_paths_kernels=full["kernels"],
+            sum_of_phases_kernels=parts["kernels"],
+            trace_paths_device_ms=f"{full['device_ms']:.3f}",
+            trace_paths_wall_ms=f"{full['wall_ms']:.3f}",
+            main_s=f"{main_s:.2f}", card=repr(smi))
+    torch.cuda.synchronize()
+    say("perf_phase", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    return launches
+
+
 def main(kernels_only=False):
     if not os.path.isdir(os.path.join(HERE, "fspt_tpu_torch")):
         raise SystemExit("chip_smoke.py: fspt_tpu_torch/ is not beside this "
@@ -1663,7 +1729,7 @@ def main(kernels_only=False):
             print("  ptxas: " + " ".join(f"{k}={v}" for k, v in entry.items()),
                   flush=True)
 
-    from fspt_tpu_torch import RenderConfig, Renderer
+    from fspt_tpu_torch import RenderConfig, Renderer, bench
     from fspt_tpu_torch.core import integrator, rng
     from fspt_tpu_torch.core.camera import generate_rays
     from fspt_tpu_torch.core.vec import V3
@@ -1691,12 +1757,7 @@ def main(kernels_only=False):
     t0 = time.perf_counter()
     scene = make_bunny_standin_scene(subdivisions=6)
     size = 512
-    cfg = RenderConfig(width=size, height=size, bounces=8,
-                       extra_refraction_iters=0, batch_spp=8, compact=True,
-                       wavefront_batch=True, sort_state=True,
-                       intersector="split", nee_env_nearest=True,
-                       escape_env_nearest=True,
-                       compact_schedule=BENCH_SCHEDULE)
+    cfg = bench.bench_config(size, 8)
     r = Renderer(scene, cfg, device="cuda")
     a, meta = r.arrays, scene.meta
     children = (a.pk_nodes[:, 48:56] > -1e8).sum(1)
@@ -1881,17 +1942,22 @@ def main(kernels_only=False):
 
     # ---- 8. bench ("split") ---------------------------------------------
     r.step()                                      # warm-up
-    launches, samples, seconds, rays = timed_steps(r, 4, packet_traverse4)
-    expected = 4 * integrator.traversal_launches(cfg, n, cfg.batch_spp)
-    if launches != expected:
-        raise AssertionError(f"traverse4 launched {launches} times on the "
-                             f"main path, expected {expected}")
+    steps = bench.time_steps(r, BENCH_STEPS)
+    line = bench.summarize(r, steps, smi)         # raises on a wrong count
+    launches = sum(s["launches"] for s in steps)
+    samples = sum(s["samples"] for s in steps)
+    seconds = sum(s["seconds"] for s in steps)
+    rays = sum(s["rays"] for s in steps)
     say("bench", size=f"{size}x{size}", spp=samples, bounces=8,
-        seconds=f"{seconds:.4f}",
-        ms_per_sample=f"{seconds / samples * 1e3:.3f}",
-        honest_rays=f"{rays:.0f}", rays_per_s=f"{rays / seconds:.0f}",
-        kernel_launches=launches, expected_launches=expected,
+        steps=len(steps), seconds=f"{seconds:.4f}",
+        ms_per_sample_median=f"{line['ms_per_sample_median']:.3f}",
+        ms_per_sample_min=f"{line['ms_per_sample_min']:.3f}",
+        ms_per_sample_max=f"{line['ms_per_sample_max']:.3f}",
+        honest_rays=f"{rays:.0f}", rays_per_s=f"{line['value']:.0f}",
+        kernel_launches=launches,
+        expected_launches=len(steps) * line["traverse4_launches_per_step"],
         card=repr(smi))
+    print("[bench_json] " + json.dumps(line), flush=True)
     hdr = check_image(r, "bench", size)
     png = os.path.join(OUT_DIR, "chip_smoke_bench.png")
     r.save(png)
@@ -2203,6 +2269,10 @@ def main(kernels_only=False):
     dist_launches, dist_walk_launches = phase_dist(scene, smi)
     check_stack_overflow(dev)
 
+    # ---- 21. perf_phase -----------------------------------------------------
+    phase_launches = phase_perf(scene, smi)
+    check_stack_overflow(dev)
+
     # ---- the kernels and the result --------------------------------------
     # library_ms is null in every row: no PyTorch call computes a BVH
     # traversal.  bound_ms: ops/traverse.py `traversal_bound` on this run's
@@ -2245,11 +2315,13 @@ def main(kernels_only=False):
                per_step(cfg)),
          "animate_launches_per_frame": animate_launches,
          "view_launches": view_launches,
-         "dist_launches_per_step": dist_launches},
+         "dist_launches_per_step": dist_launches,
+         "perf_phase_launches": phase_launches["traverse4"]},
         {**row("walk3", "fspt_tpu_torch/csrc/walk.cu",
                "fspt_tpu/ops/traverse3.py:64", walk_launches,
                per_step(walk_cfg)),
-         "dist_launches_per_step": dist_walk_launches},
+         "dist_launches_per_step": dist_walk_launches,
+         "perf_phase_launches": phase_launches["walk3"]},
         row("walk1", "fspt_tpu_torch/csrc/walk1.cu",
             "fspt_tpu/ops/traverse.py:243", packet_launches, per_step(pcfg)),
         study_row("walk5", "bounce0", "fspt_tpu_torch/csrc/walk5.cu",

@@ -142,9 +142,10 @@ Phases (one line each; any failure raises and exits non-zero):
      X-Meta).  Every wait has its own deadline (28 s in all);
  19. profile: `Renderer.profile_trace` of one bench step (8 spp) into
      OUT_DIR/profile: the trace's kernel events, traverse4's among them
-     (one a launch), their summed device time against the step's wall time
-     from its `Renderer.step` span (the device's busy share), and the five
-     kernels with the most device time; the trace is kept gzipped;
+     (one a launch), and its `fspt.traverse` spans (one a launch), their
+     summed device time against the step's wall time from its `fspt.step`
+     span (the device's busy share), and the five kernels with the most
+     device time; the trace is kept gzipped;
  20. dist (parallel/): the bench scene at 512x512 under the bench
      configuration without the cross-sample batch and with the default
      compaction schedule (`dist_cfg`: "split", 8 bounces, compact,
@@ -1234,7 +1235,9 @@ def phase_profile(scene, cfg, smi):
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     step, = [e for e in events if e.get("cat") == "user_annotation"
-             and e.get("name") == "Renderer.step"]
+             and e.get("name") == "fspt.step"]
+    traverse = [e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == "fspt.traverse"]
     walk4 = [e for e in kernels if "walk4_kernel" in e["name"]]
     busy_us = sum(e["dur"] for e in kernels)
     names = {}
@@ -1248,6 +1251,7 @@ def phase_profile(scene, cfg, smi):
     say("profile", size=f"{cfg.width}x{cfg.height}", spp=cfg.batch_spp,
         bounces=cfg.bounces, kernel_events=len(kernels),
         traverse4_events=len(walk4), traverse4_launches=launches,
+        traverse_spans=len(traverse),
         kernel_ms=f"{busy_us / 1e3:.3f}",
         traverse4_ms=f"{sum(e['dur'] for e in walk4) / 1e3:.3f}",
         step_wall_ms=f"{step['dur'] / 1e3:.3f}",
@@ -1260,6 +1264,9 @@ def phase_profile(scene, cfg, smi):
     if not (walk4 and len(walk4) == launches > 0):
         raise AssertionError(f"profile: {len(walk4)} traverse4 kernel "
                              f"events for {launches} launches in the trace")
+    if len(traverse) != launches:
+        raise AssertionError(f"profile: {len(traverse)} fspt.traverse spans "
+                             f"for {launches} launches in the trace")
     del r
     torch.cuda.synchronize()
 

@@ -49,6 +49,7 @@ from fspt_tpu_torch.core.vec import V3, dot, normalize, where
 from fspt_tpu_torch.ops.traverse import PacketHit, packet_traverse
 from fspt_tpu_torch.ops.traverse3 import packet_traverse3
 from fspt_tpu_torch.ops.traverse4 import packet_traverse4
+from fspt_tpu_torch.trace import span
 
 INTERSECTORS = ("split", "walk", "packet", "brute")
 MODES = ("render", "bvh_heatmap")
@@ -86,29 +87,31 @@ def intersect(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
 
     Not differentiable by design: the hit is a discrete event, so the
     inputs go in detached and shading re-derives the differentiable
-    quantities."""
-    check_config(cfg)
-    if cfg.intersector == "brute":
-        return _intersect_brute(scene, cfg, origin, direction, tmax=tmax)
-    width = meta.bvh_width
-    depth = max(cfg.stack_depth, meta.pk_stack_depth)
-    # JAX :88-89, :103-104
-    args = (scene.pk_nodes, scene.pk_leaves, _contig(_sg(origin)),
-            _contig(_sg(direction)),
-            tmax.detach().contiguous() if tmax is not None else None)
-    kw = dict(leaf_size=meta.leaf_size, any_hit=any_hit)
-    if cfg.intersector == "split":
-        return packet_traverse4(*args, stack_depth=depth + 2 * width,
-                                tree_width=width, **kw)
-    if cfg.intersector == "walk":
-        return packet_traverse3(*args, stack_depth=depth, tree_width=width,
-                                **kw)
-    if width != 8:
-        raise ValueError(
-            "the v1 'packet' intersector reads the 8-wide BVH layout; "
-            f"this scene was packed {width}-wide — rebuild the scene "
-            "with bvh_width=8 or use intersector='walk'")
-    return packet_traverse(*args, stack_depth=depth, **kw)
+    quantities.  One `fspt.traverse` span a launch (fspt_tpu_torch/trace.py).
+    """
+    with span("traverse"):
+        check_config(cfg)
+        if cfg.intersector == "brute":
+            return _intersect_brute(scene, cfg, origin, direction, tmax=tmax)
+        width = meta.bvh_width
+        depth = max(cfg.stack_depth, meta.pk_stack_depth)
+        # JAX :88-89, :103-104
+        args = (scene.pk_nodes, scene.pk_leaves, _contig(_sg(origin)),
+                _contig(_sg(direction)),
+                tmax.detach().contiguous() if tmax is not None else None)
+        kw = dict(leaf_size=meta.leaf_size, any_hit=any_hit)
+        if cfg.intersector == "split":
+            return packet_traverse4(*args, stack_depth=depth + 2 * width,
+                                    tree_width=width, **kw)
+        if cfg.intersector == "walk":
+            return packet_traverse3(*args, stack_depth=depth, tree_width=width,
+                                    **kw)
+        if width != 8:
+            raise ValueError(
+                "the v1 'packet' intersector reads the 8-wide BVH layout; "
+                f"this scene was packed {width}-wide — rebuild the scene "
+                "with bvh_width=8 or use intersector='walk'")
+        return packet_traverse(*args, stack_depth=depth, **kw)
 
 
 def _morton21(x, y, z):
@@ -386,25 +389,26 @@ def _compact(state: PathState, key, it: int, w_out: int,
     survives with weight 1 and the estimator is unchanged lane for lane.
     Dropped lanes come back as (lidx, color) rows for the caller's single
     end-of-trace deposit."""
-    w_in = state.lidx.shape[0]
-    active = state.active
-    n_active = active.to(torch.int32).sum()
-    u = stream_uniforms(key, stream_base + it, (1, w_in),
-                        lane_offset=state.gid, key_rows=key_rows,
-                        lanes_per_key=lanes_per_key)[0]
-    # JAX :416
-    skey = torch.where(active, u.detach(), torch.full_like(u, 2.0))
-    perm = torch.sort(skey, stable=True).indices
-    new = _take(state, perm[:w_out])
-    sel_drop = perm[w_out:]
-    drop_lidx = state.lidx[sel_drop]
-    drop_color = vec.to_array(state.color)[sel_drop]
-    scale = torch.where(n_active > w_out,
-                        n_active.to(torch.float32) / float(w_out),
-                        torch.ones((), device=u.device))
-    rr_dropped = torch.clamp(n_active - w_out, min=0).to(torch.float32)
-    new = new._replace(throughput=new.throughput * scale)
-    return new, (drop_lidx, drop_color), rr_dropped
+    with span("compact"):
+        w_in = state.lidx.shape[0]
+        active = state.active
+        n_active = active.to(torch.int32).sum()
+        u = stream_uniforms(key, stream_base + it, (1, w_in),
+                            lane_offset=state.gid, key_rows=key_rows,
+                            lanes_per_key=lanes_per_key)[0]
+        # JAX :416
+        skey = torch.where(active, u.detach(), torch.full_like(u, 2.0))
+        perm = torch.sort(skey, stable=True).indices
+        new = _take(state, perm[:w_out])
+        sel_drop = perm[w_out:]
+        drop_lidx = state.lidx[sel_drop]
+        drop_color = vec.to_array(state.color)[sel_drop]
+        scale = torch.where(n_active > w_out,
+                            n_active.to(torch.float32) / float(w_out),
+                            torch.ones((), device=u.device))
+        rr_dropped = torch.clamp(n_active - w_out, min=0).to(torch.float32)
+        new = new._replace(throughput=new.throughput * scale)
+        return new, (drop_lidx, drop_color), rr_dropped
 
 
 def _sort_state(scene, state: PathState) -> PathState:
@@ -412,14 +416,16 @@ def _sort_state(scene, state: PathState) -> PathState:
     points (inactive lanes last), so every traversal launch of the
     iteration goes out coherent and its hits come back aligned.
     Estimator-neutral: RNG is keyed by gid and deposits by lidx."""
-    hit_p = state.origin + state.direction * state.t
-    wmin, extent = _scene_box(scene)
-    morton = _morton21((hit_p.x - wmin[0]) / extent[0],
-                       (hit_p.y - wmin[1]) / extent[1],
-                       (hit_p.z - wmin[2]) / extent[2])
-    key = torch.where(state.active, morton, torch.full_like(morton, 1 << 30))
-    return _take(state, torch.sort(key.detach(),                # JAX :478
-                                   stable=True).indices)
+    with span("sort"):
+        hit_p = state.origin + state.direction * state.t
+        wmin, extent = _scene_box(scene)
+        morton = _morton21((hit_p.x - wmin[0]) / extent[0],
+                           (hit_p.y - wmin[1]) / extent[1],
+                           (hit_p.z - wmin[2]) / extent[2])
+        key = torch.where(state.active, morton,
+                          torch.full_like(morton, 1 << 30))
+        return _take(state, torch.sort(key.detach(),            # JAX :478
+                                       stable=True).indices)
 
 
 def _compact_groups(cfg: RenderConfig, n: int):
@@ -474,10 +480,12 @@ def _bounce(scene, cfg, meta, attr, tex, state, it, key, key_rows=None,
     if cfg.sort_state:
         state = _sort_state(scene, state)
     w = state.lidx.shape[0]
-    u = stream_uniforms(key, 1 + it, (11, w), lane_offset=state.gid,
-                        key_rows=key_rows, lanes_per_key=lanes_per_key)
-    return _shade_and_scatter(scene, cfg, meta, state, u,
-                              (meta.env_h, meta.env_w), attr, tex)
+    with span("uniforms"):
+        u = stream_uniforms(key, 1 + it, (11, w), lane_offset=state.gid,
+                            key_rows=key_rows, lanes_per_key=lanes_per_key)
+    with span("shade"):
+        return _shade_and_scatter(scene, cfg, meta, state, u,
+                                  (meta.env_h, meta.env_w), attr, tex)
 
 
 def _stack_stats(per_it):
@@ -1008,11 +1016,12 @@ def trace_heatmap(scene, cfg: RenderConfig, meta, origin: V3,
     does (no such budget on the card).  "packet" and "brute" keep their
     group-constant (or zero) counts, as in the JAX version."""
     if cfg.intersector in ("walk", "split"):
-        hit = packet_traverse3(                                 # JAX :1160
-            scene.pk_nodes, scene.pk_leaves, _contig(_sg(origin)),
-            _contig(_sg(direction)), leaf_size=meta.leaf_size,
-            stack_depth=max(cfg.stack_depth, meta.pk_stack_depth),
-            tree_width=meta.bvh_width, lane_counts=True)
+        with span("traverse"):
+            hit = packet_traverse3(                             # JAX :1160
+                scene.pk_nodes, scene.pk_leaves, _contig(_sg(origin)),
+                _contig(_sg(direction)), leaf_size=meta.leaf_size,
+                stack_depth=max(cfg.stack_depth, meta.pk_stack_depth),
+                tree_width=meta.bvh_width, lane_counts=True)
     else:
         hit = intersect(scene, cfg, meta, origin, direction)
     v = hit.visits.to(torch.float32) * cfg.heatmap_scale

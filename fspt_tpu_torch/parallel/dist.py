@@ -45,6 +45,7 @@ from fspt_tpu_torch.core.vec import V3
 from fspt_tpu_torch.ops.traverse import check_stack_overflow
 from fspt_tpu_torch.runtime.layout import tile_order
 from fspt_tpu_torch.runtime.renderer import _device
+from fspt_tpu_torch.trace import span
 
 PARAM_FIELDS = ("emit", "ior", "dielectric",
                 "atlas_r", "atlas_g", "atlas_b", "env_rgb")
@@ -342,10 +343,11 @@ def make_train_step(cfg: RenderConfig, meta, device: Optional[str] = None,
         losses, grads = [], []
         for j in range(len(mesh.shards)):
             # one shard's graph at a time: autograd.grad frees it
-            with torch.enable_grad():
+            with span("train.forward"), torch.enable_grad():
                 loss = torch.mean((radiance(j, params, cam_params, scene,
                                             cam, key) - targets[j]) ** 2)
-            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with span("train.backward"):
+                g = torch.autograd.grad(loss, leaves, allow_unused=True)
             losses.append(loss.detach())
             grads.append([torch.zeros_like(p) if gi is None else gi
                           for p, gi in zip(leaves, g)])

@@ -28,6 +28,7 @@ from fspt_tpu_torch.core.tonemap import postprocess
 from fspt_tpu_torch.core.traversal import intersect_scene
 from fspt_tpu_torch.ops.traverse import check_stack_overflow
 from fspt_tpu_torch.runtime.layout import tile_order, untile
+from fspt_tpu_torch.trace import span
 
 
 def _device(device) -> torch.device:
@@ -137,15 +138,16 @@ class Renderer:
     @torch.no_grad()
     def step(self, num_batches: int = 1):
         t0 = time.perf_counter()
-        rays0 = float(self.rays)
-        for _ in range(num_batches):
-            self.accum, self.count, self.rays = sample_step(
-                self.arrays, self.cfg, self.scene.meta, self.camera,
-                self.accum, self.count, self.rays, self.base_key,
-                self.sample_idx, self.resolution, self.pixel_idx)
-            self.sample_idx += 1
-        self._sync()
-        rays1 = float(self.rays)
+        with span("step"):
+            rays0 = float(self.rays)
+            for _ in range(num_batches):
+                self.accum, self.count, self.rays = sample_step(
+                    self.arrays, self.cfg, self.scene.meta, self.camera,
+                    self.accum, self.count, self.rays, self.base_key,
+                    self.sample_idx, self.resolution, self.pixel_idx)
+                self.sample_idx += 1
+            self._sync()
+            rays1 = float(self.rays)
         dt = time.perf_counter() - t0
         self._stats["samples"] += num_batches * self.cfg.batch_spp
         self._stats["seconds"] += dt
@@ -226,9 +228,10 @@ class Renderer:
             idx = py * self.cfg.width + px
             origin = vec.to_array(o)[idx:idx + 1]
             direction = vec.to_array(d)[idx:idx + 1]
-        hit = intersect_scene(self.arrays, origin, direction,
-                              leaf_size=self.scene.leaf_size,
-                              stack_depth=self.cfg.stack_depth)
+        with span("traverse"):
+            hit = intersect_scene(self.arrays, origin, direction,
+                                  leaf_size=self.scene.leaf_size,
+                                  stack_depth=self.cfg.stack_depth)
         t = float(hit.t[0])
         if t < self.cfg.max_t:
             self.camera = self.camera._replace(
@@ -278,17 +281,16 @@ class Renderer:
         `logdir` as a Chrome trace (`*.pt.trace.json`, viewable in
         TensorBoard or chrome://tracing): the host's ops, and on the card
         every kernel of the process, the traversal kernels launched through
-        ctypes included.  The steps are one `Renderer.step` span."""
+        ctypes included.  The steps are one `fspt.step` span, the program's
+        phases spans inside it (fspt_tpu_torch/trace.py)."""
         from torch.profiler import (ProfilerActivity, profile,
-                                    record_function,
                                     tensorboard_trace_handler)
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities,
                      on_trace_ready=tensorboard_trace_handler(logdir)):
-            with record_function("Renderer.step"):
-                self.step(num_batches)
+            self.step(num_batches)
         return self
 
     @torch.no_grad()

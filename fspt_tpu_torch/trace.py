@@ -1,0 +1,41 @@
+"""Spans of the program's phases, on torch.profiler's clock.
+
+`with span("shade"): ...` marks one phase.  While a profiler records, the
+span is `torch.profiler.record_function("fspt.shade")`: it lands in the
+profiler's trace beside the host's ops and the kernels they launch, so a
+Chrome trace of `Renderer.profile_trace` (or any profiler the caller runs)
+names the phase every op and kernel belongs to.  With no profiler
+recording, a span costs one flag check and creates no RecordFunction.
+Whether a span records is decided when it is entered and kept until it
+exits.
+
+The spans, each where its work happens:
+
+  fspt.step           runtime/renderer.py Renderer.step, its whole body
+  fspt.traverse       core/integrator.py intersect (and the heatmap's
+                      launch, and Renderer.autofocus's walk): one a launch
+  fspt.shade          core/integrator.py _bounce: _shade_and_scatter
+  fspt.uniforms       _bounce: the iteration's stream_uniforms
+  fspt.sort           _sort_state
+  fspt.compact        _compact
+  fspt.train.forward  parallel/dist.py make_train_step: a shard's
+                      radiance and loss
+  fspt.train.backward the same step: a shard's torch.autograd.grad
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from torch.autograd import profiler as _profiler
+
+PREFIX = "fspt."
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager over one phase named PREFIX + name."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(PREFIX + name)
+    return _OFF

@@ -1,0 +1,9 @@
+"""span_ms.shade: the self time of the program's `fspt.shade` spans in
+the profiled slice (_bounce's _shade_and_scatter, its traversal launches
+left out), in ms over the slice's samples."""
+
+from fsptbench.spans import ms_per
+
+
+def read(run):
+    return ms_per(run, "fspt.shade", "samples")

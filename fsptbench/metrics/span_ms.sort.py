@@ -1,0 +1,9 @@
+"""span_ms.sort: the self time of the program's `fspt.sort` spans in
+the profiled slice (_sort_state: the Morton sort of the path state), in ms
+over the slice's samples."""
+
+from fsptbench.spans import ms_per
+
+
+def read(run):
+    return ms_per(run, "fspt.sort", "samples")

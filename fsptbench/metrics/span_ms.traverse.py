@@ -1,0 +1,9 @@
+"""span_ms.traverse: the self time of the program's `fspt.traverse`
+spans in the profiled slice (integrator.intersect: the host's dispatch of
+each traversal launch), in ms over the slice's samples."""
+
+from fsptbench.spans import ms_per
+
+
+def read(run):
+    return ms_per(run, "fspt.traverse", "samples")

@@ -212,7 +212,8 @@ def test_profile_trace_writes_chrome_trace(small_scene, tmp_path):
     assert len(files) == 1
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    step, = [e for e in events if e.get("name") == "Renderer.step"]
+    step, = [e for e in events if e.get("name") == "fspt.step"]
+    assert not [e for e in events if e.get("name") == "Renderer.step"]
     ops = [e for e in events if e.get("cat") == "cpu_op"
            and step["ts"] <= e["ts"] <= step["ts"] + step["dur"]]
     assert len(ops) > 100

@@ -133,7 +133,9 @@ Phases (one line each; any failure raises and exits non-zero):
      <= 4/255).  Then `python -m fspt_tpu_torch animate` of a tiny
      keyframed scene, --end 2, with and without --refit, in a subprocess;
  18. view: `InteractiveViewer` on the card over the bench scene under the
-     bench configuration, headless: the first frame; a drag (look events
+     bench configuration, headless: the first frame (`start` captures both
+     renderers' CUDA graphs before it; one capture each, checked at the
+     end); a drag (look events
      at 20 Hz from a thread) until previews arrive, with each event's
      time; `moveend` until a progressive frame; an envTheta restart; ms a
      preview and a full frame from the renderers' own step times;
@@ -141,11 +143,13 @@ Phases (one line each; any failure raises and exits non-zero):
      port: GET / (the page), POST /input (204), GET /frame (a PNG with
      X-Meta).  Every wait has its own deadline (28 s in all);
  19. profile: `Renderer.profile_trace` of one bench step (8 spp) into
-     OUT_DIR/profile: the trace's kernel events, traverse4's among them
-     (one a launch), and its `fspt.traverse` spans (one a launch), their
-     summed device time against the step's wall time from its `fspt.step`
-     span (the device's busy share), and the five kernels with the most
-     device time; the trace is kept gzipped;
+     OUT_DIR/profile, the step a replay of the CUDA graph captured before
+     the profiler started: the trace's kernel events, traverse4's among
+     them (one a launch its counter counts), one `fspt.replay` span and no
+     `fspt.traverse` span (the phases run on the device alone), the
+     kernels' summed device time against the step's wall time from its
+     `fspt.step` span (the device's busy share), and the five kernels with
+     the most device time; the trace is kept gzipped;
  20. dist (parallel/): the bench scene at 512x512 under the bench
      configuration without the cross-sample batch and with the default
      compaction schedule (`dist_cfg`: "split", 8 bounces, compact,
@@ -187,6 +191,16 @@ Phases (one line each; any failure raises and exits non-zero):
      bounce-0 launch of each through `check_launch` (nearest, any-hit,
      clipped, bit-equal), its tally equal to the replay's, and a
      [phase_summary] line each.
+ 22. graph: `Renderer.step` replaying its CUDA graph (runtime/renderer.py
+     StepGraph) at the bench's settings (bunny8: 8 spp, the wavefront
+     batch) and the CLI's (bunny4: 4 spp, 4 bounces, a sample at a time)
+     at 512x512 on the bench scene, against eager `sample_step` calls on a
+     second renderer: accum, count and rays bit-equal after the capture
+     and after GRAPH_STEPS steps of each kind timed in turns; traverse4's
+     launches a replayed step equal to `traversal_launches`; one capture;
+     a [graph] line each with the capture's host time (the capture pass
+     and the graph's instantiation), the eager first step, the step that
+     captured, and the median ms/sample eager and replayed.
 Then one JSON line with the kernels' numbers (each row with its bound from
 ops/traverse.py `traversal_bound`, computed from this run's visit counts and
 the valid children and real triangles those visits tested, and its launches
@@ -1154,6 +1168,8 @@ def phase_view(scene, cfg, smi):
     if v._thread.is_alive():
         raise AssertionError("view: the render loop did not stop")
     launches = packet_traverse4.launches
+    captures = (v.renderer.stats["graph_captures"],
+                v.preview.stats["graph_captures"])
     # a frame is one step of the renderer that made it
     frames = lambda r: r.stats["samples"] / r.cfg.batch_spp
     ms = lambda r: r.stats["seconds"] * 1e3 / frames(r)
@@ -1167,9 +1183,13 @@ def phase_view(scene, cfg, smi):
         max_event_ms=f"{max(event_ms):.2f}",
         ms_per_preview_frame=f"{ms(v.preview):.1f}",
         settled_samples=settled, restart_samples=meta["samples"],
-        traverse4_launches=launches, card=repr(smi))
+        traverse4_launches=launches,
+        graph_captures=f"{captures[0]},{captures[1]}", card=repr(smi))
     if not launches > 0:
         raise AssertionError("view: traverse4 was never launched")
+    if captures != (1, 1):
+        raise AssertionError(f"view: graph captures {captures}, not one "
+                             "each before the first event")
 
     # the HTTP routes, on a free loopback port
     sock = socket.socket()
@@ -1221,7 +1241,8 @@ def phase_profile(scene, cfg, smi):
     from fspt_tpu_torch import Renderer
     from fspt_tpu_torch.ops.traverse4 import packet_traverse4
     r = Renderer(scene, cfg, device="cuda")
-    r.step()                                      # warm-up
+    r.step()                                      # warm-up (eager)
+    r.step()                                      # the graph's capture
     logdir = os.path.join(OUT_DIR, "profile")
     shutil.rmtree(logdir, ignore_errors=True)
     packet_traverse4.launches = 0
@@ -1238,6 +1259,8 @@ def phase_profile(scene, cfg, smi):
              and e.get("name") == "fspt.step"]
     traverse = [e for e in events if e.get("cat") == "user_annotation"
                 and e.get("name") == "fspt.traverse"]
+    replay = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == "fspt.replay"]
     walk4 = [e for e in kernels if "walk4_kernel" in e["name"]]
     busy_us = sum(e["dur"] for e in kernels)
     names = {}
@@ -1251,7 +1274,7 @@ def phase_profile(scene, cfg, smi):
     say("profile", size=f"{cfg.width}x{cfg.height}", spp=cfg.batch_spp,
         bounces=cfg.bounces, kernel_events=len(kernels),
         traverse4_events=len(walk4), traverse4_launches=launches,
-        traverse_spans=len(traverse),
+        traverse_spans=len(traverse), replay_spans=len(replay),
         kernel_ms=f"{busy_us / 1e3:.3f}",
         traverse4_ms=f"{sum(e['dur'] for e in walk4) / 1e3:.3f}",
         step_wall_ms=f"{step['dur'] / 1e3:.3f}",
@@ -1264,9 +1287,12 @@ def phase_profile(scene, cfg, smi):
     if not (walk4 and len(walk4) == launches > 0):
         raise AssertionError(f"profile: {len(walk4)} traverse4 kernel "
                              f"events for {launches} launches in the trace")
-    if len(traverse) != launches:
-        raise AssertionError(f"profile: {len(traverse)} fspt.traverse spans "
-                             f"for {launches} launches in the trace")
+    # a replayed step: one fspt.replay span, and its phases run on the
+    # device alone, so no fspt.traverse span
+    if len(replay) != 1 or traverse:
+        raise AssertionError(f"profile: {len(replay)} fspt.replay and "
+                             f"{len(traverse)} fspt.traverse spans in the "
+                             "trace of a replayed step")
     del r
     torch.cuda.synchronize()
 
@@ -1677,6 +1703,97 @@ def phase_perf(scene, smi):
     torch.cuda.synchronize()
     say("perf_phase", phase_s=f"{time.perf_counter() - t_phase:.2f}")
     return launches
+
+
+# ---- 22: graph ------------------------------------------------------------
+
+GRAPH_STEPS = 6          # phase 22's timed steps of each kind, in turns
+
+
+def phase_graph(scene, smi):
+    """22. graph (see the module docstring).  Raises on a failure."""
+    import types
+
+    import torch
+    from fspt_tpu_torch import Renderer
+    from fspt_tpu_torch.__main__ import _config
+    from fspt_tpu_torch.bench import bench_config
+    from fspt_tpu_torch.core import integrator
+    from fspt_tpu_torch.ops.traverse4 import packet_traverse4
+    from fspt_tpu_torch.runtime.renderer import sample_step
+
+    def eager(r):
+        t0 = time.perf_counter()
+        r.accum, r.count, r.rays = sample_step(
+            r.arrays, r.cfg, r.scene.meta, r.camera, r.accum, r.count,
+            r.rays, r.base_key, r.sample_idx, r.resolution, r.pixel_idx)
+        r.sample_idx += 1
+        r._sync()
+        return time.perf_counter() - t0
+
+    def replayed(r):
+        t0 = time.perf_counter()
+        r.step()
+        return time.perf_counter() - t0
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("accum", "count", "rays"))
+
+    cli = _config(types.SimpleNamespace(res="512", bounces=4, batch_spp=4,
+                                        seed=0, no_compact=False))
+    for case, cfg in (("bunny8", bench_config(512, 8)), ("bunny4", cli)):
+        n = cfg.width * cfg.height
+        want = integrator.traversal_launches(cfg, n, cfg.batch_spp)
+        g, e = Renderer(scene, cfg, device="cuda"), Renderer(
+            scene, cfg, device="cuda")
+        first_s = replayed(g)                     # eager: the warm-up
+        eager(e)
+        capture_step_s = replayed(g)              # capture, then replay
+        eager(e)
+        capture_s = g._graph.capture_s
+        if not same(g, e):
+            raise AssertionError(f"graph {case}: the captured step differs "
+                                 "from the eager one")
+        ts = {"eager": [], "replay": []}
+        launches = []
+        for i in range(GRAPH_STEPS):
+            # in turns: eager, replay, replay, eager, ...
+            for kind in (("eager", "replay") if i % 2 == 0
+                         else ("replay", "eager")):
+                if kind == "eager":
+                    ts[kind].append(eager(e))
+                else:
+                    packet_traverse4.launches = 0
+                    ts[kind].append(replayed(g))
+                    launches.append(packet_traverse4.launches)
+        if not same(g, e):
+            raise AssertionError(f"graph {case}: replayed steps differ from "
+                                 "eager sample_step calls")
+        if set(launches) != {want}:
+            raise AssertionError(f"graph {case}: traverse4 launches a "
+                                 f"replayed step {launches}, not {want}")
+        stats = g.stats
+        if (stats["graph_captures"], stats["graph_replays"]) != (
+                1, GRAPH_STEPS + 1):
+            raise AssertionError(f"graph {case}: {stats['graph_captures']} "
+                                 f"captures, {stats['graph_replays']} "
+                                 "replays")
+        med = lambda xs: sorted(xs)[len(xs) // 2] * 1e3 / cfg.batch_spp
+        eager_ms, replay_ms = med(ts["eager"]), med(ts["replay"])
+        say("graph", case=case, size=f"{cfg.width}x{cfg.height}",
+            spp=cfg.batch_spp, bounces=cfg.bounces, bit_equal=True,
+            capture_s=f"{capture_s:.3f}",
+            first_step_ms=f"{first_s * 1e3:.1f}",
+            capture_step_ms=f"{capture_step_s * 1e3:.1f}",
+            eager_ms_per_sample=f"{eager_ms:.3f}",
+            replay_ms_per_sample=f"{replay_ms:.3f}",
+            speedup=f"{eager_ms / replay_ms:.2f}",
+            eager_steps_ms=",".join(f"{t * 1e3:.1f}" for t in ts["eager"]),
+            replay_steps_ms=",".join(f"{t * 1e3:.1f}" for t in ts["replay"]),
+            traverse4_launches_per_step=want, card=repr(smi))
+        del g, e
+        torch.cuda.synchronize()
 
 
 def main(kernels_only=False):
@@ -2278,6 +2395,10 @@ def main(kernels_only=False):
 
     # ---- 21. perf_phase -----------------------------------------------------
     phase_launches = phase_perf(scene, smi)
+    check_stack_overflow(dev)
+
+    # ---- 22. graph ----------------------------------------------------------
+    phase_graph(scene, smi)
     check_stack_overflow(dev)
 
     # ---- the kernels and the result --------------------------------------

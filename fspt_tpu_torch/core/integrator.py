@@ -496,7 +496,8 @@ def _clip(x, lo: float, hi: float):
     """jnp.clip as the JAX version computes it, minimum(maximum(x, lo), hi):
     the same values as torch.clamp, and at a tie (a lane whose radiance
     is exactly 0) the same half gradient, where torch.clamp passes all."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def _deposit(drops, state, n):
@@ -514,8 +515,8 @@ def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
                 key, lane_offset=0, return_stats: bool = False):
     """Path-trace one sample for every input ray.  Returns V3 (N,) radiance
     (or (radiance, TraceStats) when return_stats).  key: host key data
-    (core/rng.py).  lane_offset: global lane id of ray 0, or an (N,) tensor
-    of explicit ids."""
+    or its (2,) int64 device row (core/rng.py).  lane_offset: global lane
+    id of ray 0, or an (N,) tensor of explicit ids."""
     _check_streams(cfg)
     n = origin.x.shape[0]
     dev = origin.x.device
@@ -605,6 +606,10 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
     lane % n_per) — bit-identical to the unbatched streams, so the batch
     reproduces K sequential trace_paths calls whenever RR does not fire.
 
+    batch_key: host key data, or the (K, 2) int64 device table of the
+    samples' keys (row k the key data of fold_in(batch_key, k)), which a
+    captured sample step reads.
+
     Returns the SUM over the K samples of their (clamped) radiance as V3
     (n_per,) planes (and TraceStats when return_stats)."""
     n_tot = origin.x.shape[0]
@@ -614,8 +619,11 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
                          f"{n_per}-ray samples")
     _check_streams(cfg)
     dev = origin.x.device
-    key_rows = rng.key_rows_tensor(rng.key_rows_for(batch_key, k_samples),
-                                   dev)
+    if torch.is_tensor(batch_key):
+        key_rows = batch_key
+    else:
+        key_rows = rng.key_rows_tensor(
+            rng.key_rows_for(batch_key, k_samples), dev)
     tex = _packed_tables(scene, cfg, meta)
     attr = _attr_table(scene)
     groups_a, its_a, groups_b = _merged_groups(cfg, n_per, n_tot)
@@ -625,7 +633,7 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
         lanes = slice(k * n_per, (k + 1) * n_per)
         o = V3(origin.x[lanes], origin.y[lanes], origin.z[lanes])
         d = V3(direction.x[lanes], direction.y[lanes], direction.z[lanes])
-        skey = rng.fold_in(batch_key, k)
+        skey = key_rows[k]
         local = torch.arange(n_per, dtype=torch.int32, device=dev)
         state = _primary_state(scene, cfg, meta, tex, o, d,
                                k * n_per + local, local)

@@ -9,7 +9,9 @@ their exact slice of the single-device streams.
 
 Keys live on the host: a key is a (2,) uint32 numpy array (the key data
 `jax.random.key_data` would return).  Threefry runs in numpy on a handful of
-values per sample step; only PCG4D runs on the device.
+values per sample step; only PCG4D runs on the device.  A sample step
+replayed from a CUDA graph (runtime/renderer.py) reads the same key data
+from a device table that the host rewrites before each replay.
 
 torch has no complete uint32 arithmetic, so PCG4D runs in int64 holding
 values in [0, 2^32): every product and sum is masked back to 32 bits, and a
@@ -104,6 +106,9 @@ def stream_uniforms(key, stream: int, shape, lane_offset=0, key_rows=None,
                     lanes_per_key: int = 0, device=None):
     """Uniforms in [0, 1) for a numbered stream within one sample step.
 
+    key: host key data, or its (2,) int64 row on the lanes' device (a
+    captured sample step reads its keys from a device table, which the host
+    rewrites before each replay; the numbers are the same either way).
     shape: (rows, n).  lane_offset: an int (lane ids = offset + arange(n))
     or an (n,) integer tensor of explicit global lane ids, whose device the
     result takes.  key_rows + lanes_per_key (cross-sample wavefront
@@ -121,10 +126,14 @@ def stream_uniforms(key, stream: int, shape, lane_offset=0, key_rows=None,
     row = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
     ctr = ((int(stream) << 8) & _M32) | row                # (rows, 1)
     if key_rows is None:
-        b = torch.full((rows, n), int(key[0]), dtype=torch.int64,
-                       device=device)
-        c = torch.full((rows, n), int(key[1]), dtype=torch.int64,
-                       device=device)
+        if torch.is_tensor(key):
+            b = key[0].expand(rows, n)
+            c = key[1].expand(rows, n)
+        else:
+            b = torch.full((rows, n), int(key[0]), dtype=torch.int64,
+                           device=device)
+            c = torch.full((rows, n), int(key[1]), dtype=torch.int64,
+                           device=device)
         a = ids[None, :].expand(rows, n)
     else:
         s = ids // lanes_per_key

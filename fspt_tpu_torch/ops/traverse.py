@@ -124,6 +124,19 @@ def error_flag(device) -> torch.Tensor:
     return flag
 
 
+def count_launch(counter, device):
+    """Count one launch of a traversal kernel on `device`'s current stream:
+    in `counter.launches`, or, while that stream captures a CUDA graph, in
+    `counter.captured` (the graph's replays launch it; the replays add to
+    `launches`, runtime/renderer.py StepGraph)."""
+    with torch.cuda.device(device):
+        capturing = torch.cuda.is_current_stream_capturing()
+    if capturing:
+        counter.captured += 1
+    else:
+        counter.launches += 1
+
+
 def check_stack_overflow(device):
     """Raise if a traversal kernel launched on `device` overflowed a stack
     or ran away since the last check.  Reads a device flag: call after a
@@ -294,3 +307,4 @@ def packet_traverse(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
 
 packet_traverse.launches = 0
+packet_traverse.captured = 0

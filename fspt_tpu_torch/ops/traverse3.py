@@ -59,8 +59,8 @@ from fspt_tpu_torch.core.vec import V3
 from fspt_tpu_torch.ops import _build
 from fspt_tpu_torch.ops.traverse import (SENTINEL, PacketHit,
                                          check_kernel_inputs, check_tables,
-                                         error_flag, ray_planes, safe_inv,
-                                         tally_visits)
+                                         count_launch, error_flag, ray_planes,
+                                         safe_inv, tally_visits)
 
 GROUP = 128            # rays per v3 walk
 STACK_CAP = 4096       # shared-memory stack entries the CUDA kernel takes
@@ -320,7 +320,7 @@ def launch_walk(name, fn_name, counter, nodes, leaves, planes, *, leaf_size,
     if err != 0:
         msg = lib.fspt_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
-    counter.launches += 1
+    count_launch(counter, dev)
     return hit
 
 
@@ -352,3 +352,4 @@ def packet_traverse3(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
 
 packet_traverse3.launches = 0
+packet_traverse3.captured = 0

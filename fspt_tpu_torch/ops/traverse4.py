@@ -57,8 +57,8 @@ from fspt_tpu_torch.ops import _build
 from fspt_tpu_torch.ops.traverse import (MAX_T, PacketHit,  # noqa: F401
                                          check_kernel_inputs,
                                          check_stack_overflow, check_tables,
-                                         error_flag, ray_planes, safe_inv,
-                                         tally_visits)
+                                         count_launch, error_flag, ray_planes,
+                                         safe_inv, tally_visits)
 
 WIDTHS = (8, 16)       # tree widths of ops/packing.py the kernel takes
 STACK_CAP = 256        # compile-time stack capacity of the CUDA kernel
@@ -232,7 +232,7 @@ def _launch(nodes, leaves, planes, n, leaf_size, any_hit, stack_depth,
     if err != 0:
         msg = lib.fspt_cuda_error_string(err).decode()
         raise RuntimeError(f"traverse4 kernel launch failed: {msg}")
-    packet_traverse4.launches += 1
+    count_launch(packet_traverse4, dev)
     return PacketHit(t=t, slot=slot, u=u, v=v, visits=visits)
 
 
@@ -262,3 +262,4 @@ def packet_traverse4(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
 
 packet_traverse4.launches = 0
+packet_traverse4.captured = 0

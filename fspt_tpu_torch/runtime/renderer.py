@@ -9,6 +9,22 @@ the host when an image is read.
 `Renderer` takes its device explicitly: "cuda" by default, which raises
 when no card is present; "cpu" runs the same path with the traversal
 kernels' plain PyTorch versions (the CPU tests do so).
+
+On a card, `Renderer.step` runs its first sample batch eagerly, captures
+a later one as a CUDA graph (`StepGraph`: raygen and trace, keyed by a
+device table of the batch's keys) and replays that graph for every batch
+after it, so the host launches one graph instead of the step's ~10^4
+small kernels.  A capture costs the host about what three replays save,
+so it waits for a step call that is not the renderer's first (a
+progressive loop) or for a call with that many batches still to come; a
+short one-shot render stays eager.  `Renderer.warm_up` captures at once (the
+viewer does so before it serves events).
+Its inputs are copies of the camera and scene tensors, refreshed before a
+replay wherever `Renderer.camera` or `Renderer.arrays` holds another
+tensor of the same shape; another shape, config or scene is captured
+anew.  The accumulation stays outside the graph, so every step binds
+`accum` to a new tensor as the eager step does.  `sample_step` stays the
+eager path (the CPU's, and the oracle the card's tests hold replays to).
 """
 
 from __future__ import annotations
@@ -26,7 +42,9 @@ from fspt_tpu_torch.core.integrator import (check_config, trace_heatmap,
                                             trace_paths, trace_paths_batched)
 from fspt_tpu_torch.core.tonemap import postprocess
 from fspt_tpu_torch.core.traversal import intersect_scene
-from fspt_tpu_torch.ops.traverse import check_stack_overflow
+from fspt_tpu_torch.ops.traverse import check_stack_overflow, packet_traverse
+from fspt_tpu_torch.ops.traverse3 import packet_traverse3
+from fspt_tpu_torch.ops.traverse4 import packet_traverse4
 from fspt_tpu_torch.runtime.layout import tile_order, untile
 from fspt_tpu_torch.trace import span
 
@@ -58,14 +76,13 @@ class CameraState(NamedTuple):
                    aperture=f(c.aperture))
 
 
-def sample_step(scene, cfg: RenderConfig, meta, cam: CameraState, accum,
-                count, rays, base_key, sample_idx, resolution, pixel_idx):
-    """One progressive sample batch: raygen -> trace -> accumulate.
-
-    accum: (3, N) running radiance sum in pixel_idx order.  count, rays:
-    0-d float32 tensors (rays counts active-lane rays actually traced).
-    base_key: host key data (core/rng.py).  Returns (accum, count, rays)."""
-    key = rng.sample_key(base_key, sample_idx)
+def _sample_terms(scene, cfg: RenderConfig, meta, cam: CameraState,
+                  sample_keys, batch_key, resolution, pixel_idx):
+    """Raygen and trace of one sample batch: cfg.batch_spp samples, sample
+    i keyed sample_keys[i] (host key data or a (2,) int64 device row);
+    batch_key is what trace_paths_batched takes.  Returns (radiance, rays):
+    the (3, N) radiance terms and the ray counts that `_accumulate` adds,
+    one each for the wavefront batch, one a sample otherwise."""
     n = pixel_idx.shape[0]
 
     def rays_for(k):
@@ -74,30 +91,155 @@ def sample_step(scene, cfg: RenderConfig, meta, cam: CameraState, accum,
             cam.position, cam.direction, cam.fov_scale, cam.focal_depth,
             cam.aperture, resolution, cam_u, pixel_idx=pixel_idx)
 
+    planes = lambda v: torch.stack([v.x, v.y, v.z])
     if (cfg.wavefront_batch and cfg.compact and cfg.batch_spp > 1
             and cfg.mode != "bvh_heatmap"):
         # all batch_spp samples as one wavefront; tails share launches
-        per = [rays_for(rng.fold_in(key, i)) for i in range(cfg.batch_spp)]
+        per = [rays_for(sample_keys[i]) for i in range(cfg.batch_spp)]
         origin = vec.cat([o for o, _ in per])
         direction = vec.cat([d for _, d in per])
         radiance, stats = trace_paths_batched(
-            scene, cfg, meta, origin, direction, key, n_per=n,
+            scene, cfg, meta, origin, direction, batch_key, n_per=n,
             return_stats=True)
-        accum = accum + torch.stack([radiance.x, radiance.y, radiance.z])
-        return accum, count + cfg.batch_spp, rays + stats.rays
+        return [planes(radiance)], [stats.rays]
 
+    radiance, rays = [], []
     for spp_i in range(cfg.batch_spp):
-        k = rng.fold_in(key, spp_i)
+        k = sample_keys[spp_i]
         origin, direction = rays_for(k)
         if cfg.mode == "bvh_heatmap":
-            radiance = trace_heatmap(scene, cfg, meta, origin, direction)
-            rays = rays + float(n)
+            radiance.append(planes(trace_heatmap(scene, cfg, meta, origin,
+                                                 direction)))
+            rays.append(float(n))
         else:
-            radiance, stats = trace_paths(scene, cfg, meta, origin,
-                                          direction, k, return_stats=True)
-            rays = rays + stats.rays
-        accum = accum + torch.stack([radiance.x, radiance.y, radiance.z])
+            r, stats = trace_paths(scene, cfg, meta, origin, direction, k,
+                                   return_stats=True)
+            radiance.append(planes(r))
+            rays.append(stats.rays)
+    return radiance, rays
+
+
+def _accumulate(cfg: RenderConfig, accum, count, rays, radiance, ray_counts):
+    """Add one sample batch's terms, in sample order."""
+    for r in radiance:
+        accum = accum + r
+    for r in ray_counts:
+        rays = rays + r
     return accum, count + cfg.batch_spp, rays
+
+
+def sample_step(scene, cfg: RenderConfig, meta, cam: CameraState, accum,
+                count, rays, base_key, sample_idx, resolution, pixel_idx):
+    """One progressive sample batch: raygen -> trace -> accumulate.
+
+    accum: (3, N) running radiance sum in pixel_idx order.  count, rays:
+    0-d float32 tensors (rays counts active-lane rays actually traced).
+    base_key: host key data (core/rng.py).  Returns (accum, count, rays)."""
+    key = rng.sample_key(base_key, sample_idx)
+    terms = _sample_terms(scene, cfg, meta, cam,
+                          [rng.fold_in(key, i) for i in range(cfg.batch_spp)],
+                          key, resolution, pixel_idx)
+    return _accumulate(cfg, accum, count, rays, *terms)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a (nested) NamedTuple, in field order."""
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _clone(tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*map(_clone, tree))
+    return tree.clone() if torch.is_tensor(tree) else tree
+
+
+def refresh_inputs(static: list, seen: list, leaves: list) -> bool:
+    """Bring a graph's static input tensors up to `leaves`: copy each leaf
+    that is not the tensor copied last time (`seen`, updated); False where
+    a leaf differs in shape, dtype or device, or is no tensor, so that the
+    graph must be captured again."""
+    if len(leaves) != len(static):
+        return False
+    for i, (dst, new) in enumerate(zip(static, leaves)):
+        if new is seen[i]:
+            continue
+        if not (torch.is_tensor(new) and new.shape == dst.shape
+                and new.dtype == dst.dtype and new.device == dst.device):
+            return False
+        dst.copy_(new)
+        seen[i] = new
+    return True
+
+
+# the traversal launch counters a replay advances as the captured step did
+_COUNTERS = (packet_traverse4, packet_traverse3, packet_traverse)
+
+
+class StepGraph:
+    """One sample batch of a Renderer as a CUDA graph, and the static inputs
+    it reads: the (batch_spp, 2) int64 key table (`set_keys`) and copies of
+    the camera and scene tensors (brought up to date by `holds`).  The
+    outputs, `radiance` and `rays`, are overwritten by each replay; the
+    caller accumulates them before the next.  `run_body` is what the graph
+    holds, traced eagerly from the static inputs."""
+
+    def __init__(self, r: "Renderer"):
+        self.cfg, self.meta = r.cfg, r.scene.meta
+        self.resolution, self.pixel_idx = r.resolution, r.pixel_idx
+        self.keys = torch.zeros((self.cfg.batch_spp, 2), dtype=torch.int64,
+                                device=r.device)
+        self.camera, self.arrays = _clone(r.camera), _clone(r.arrays)
+        self._static = _leaves(self.camera) + _leaves(self.arrays)
+        self._seen = _leaves(r.camera) + _leaves(r.arrays)
+        self._capture()
+
+    def run_body(self):
+        """(radiance, rays) of the batch keyed by the table, from the
+        static inputs."""
+        return _sample_terms(self.arrays, self.cfg, self.meta, self.camera,
+                             self.keys, self.keys, self.resolution,
+                             self.pixel_idx)
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        # the wrappers count a captured launch apart (ops/traverse.py
+        # count_launch); each replay launches it again
+        before = [c.captured for c in _COUNTERS]
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the viewer's event thread may use the card meanwhile
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.radiance, self.rays = self.run_body()
+        self.launches = tuple(c.captured - b
+                              for c, b in zip(_COUNTERS, before))
+        self.capture_s = time.perf_counter() - t0
+
+    def holds(self, r: "Renderer") -> bool:
+        """Whether this graph serves r's config and scene, its static
+        inputs brought up to r.camera and r.arrays."""
+        return (r.cfg is self.cfg and r.scene.meta is self.meta
+                and refresh_inputs(self._static, self._seen,
+                                   _leaves(r.camera) + _leaves(r.arrays)))
+
+    def set_keys(self, base_key, sample_idx: int):
+        """Write the key table of sample batch `sample_idx`: row i the key
+        data of fold_in(sample_key(base_key, sample_idx), i)."""
+        rows = rng.key_rows_for(rng.sample_key(base_key, sample_idx),
+                                self.cfg.batch_spp).astype(np.int64)
+        self.keys.copy_(torch.from_numpy(rows))
+
+    def replay(self):
+        with span("replay"):
+            self.graph.replay()
+        for c, k in zip(_COUNTERS, self.launches):
+            c.launches += k
+
+
+# the batches still to come in a step call that repay a capture: one-shot
+# renders at the bench's and the CLI's settings, all eager against a capture
+# at the second batch, break even at 4-5 batches (PERF.md, Findings)
+CAPTURE_AHEAD = 3
 
 
 class Renderer:
@@ -119,7 +261,15 @@ class Renderer:
             tile_order(self.cfg.width, self.cfg.height)).to(self.device)
         self.base_key = rng.key(self.cfg.seed)
         self.reset()
-        self._stats = {"samples": 0, "seconds": 0.0, "rays": 0.0}
+        self._stats = {"samples": 0, "seconds": 0.0, "rays": 0.0,
+                       "graph_captures": 0, "graph_replays": 0}
+        # on a card: the first sample batch runs eagerly (the warm-up), a
+        # later one is captured as a CUDA graph (_graph_due), and replays
+        # run every batch after it
+        self._graphs = self.device.type == "cuda"
+        self._graph: Optional[StepGraph] = None
+        self._warm = False
+        self._stepped = False
 
     # ---- the reference's `dirty` restart (main.js:826-836 clear) -------
     def reset(self):
@@ -128,6 +278,7 @@ class Renderer:
         self.accum = z(3, n)
         self.count = z()
         self.rays = z()
+        self._rays_read = 0.0
         self.sample_idx = 0
 
     def _sync(self):
@@ -135,29 +286,78 @@ class Renderer:
             torch.cuda.synchronize(self.device)
             check_stack_overflow(self.device)
 
+    def _capture(self):
+        self._graph = None                      # free its pool first
+        self._graph = StepGraph(self)
+        self._stats["graph_captures"] += 1
+
+    def _graph_due(self, first_call: bool, after: int) -> bool:
+        """Whether a batch replays the graph, `after` batches of its step
+        call still to come: once a batch has run eagerly on the card, where
+        a graph exists or pays for its capture, in a progressive loop (not
+        the first step call) or before CAPTURE_AHEAD more batches."""
+        return self._warm and (self._graph is not None or not first_call
+                               or after >= CAPTURE_AHEAD)
+
+    def _replay(self):
+        """One sample batch from the CUDA graph, captured first where none
+        serves the current config, scene and input shapes."""
+        if self._graph is None or not self._graph.holds(self):
+            self._capture()
+        g = self._graph
+        g.set_keys(self.base_key, self.sample_idx)
+        g.replay()
+        self._stats["graph_replays"] += 1
+        self.accum, self.count, self.rays = _accumulate(
+            self.cfg, self.accum, self.count, self.rays, g.radiance, g.rays)
+
+    @torch.no_grad()
+    def warm_up(self):
+        """On a card, make the step's graph now: an eager batch (the
+        warm-up, its result discarded) where none ran yet, then the
+        capture, so that no later step waits for either.  Leaves the
+        accumulation alone; nothing to do on the CPU or with a graph."""
+        if self._graphs and self._graph is None:
+            if not self._warm:
+                sample_step(self.arrays, self.cfg, self.scene.meta,
+                            self.camera, self.accum, self.count, self.rays,
+                            self.base_key, self.sample_idx, self.resolution,
+                            self.pixel_idx)
+                self._sync()
+                self._warm = True
+            self._capture()
+        return self
+
     @torch.no_grad()
     def step(self, num_batches: int = 1):
         t0 = time.perf_counter()
+        first_call, self._stepped = not self._stepped, True
         with span("step"):
-            rays0 = float(self.rays)
-            for _ in range(num_batches):
-                self.accum, self.count, self.rays = sample_step(
-                    self.arrays, self.cfg, self.scene.meta, self.camera,
-                    self.accum, self.count, self.rays, self.base_key,
-                    self.sample_idx, self.resolution, self.pixel_idx)
+            for i in range(num_batches):
+                if self._graph_due(first_call, num_batches - 1 - i):
+                    self._replay()
+                else:
+                    self.accum, self.count, self.rays = sample_step(
+                        self.arrays, self.cfg, self.scene.meta, self.camera,
+                        self.accum, self.count, self.rays, self.base_key,
+                        self.sample_idx, self.resolution, self.pixel_idx)
+                    self._warm = self._graphs
                 self.sample_idx += 1
             self._sync()
-            rays1 = float(self.rays)
+            rays0, self._rays_read = self._rays_read, float(self.rays)
         dt = time.perf_counter() - t0
         self._stats["samples"] += num_batches * self.cfg.batch_spp
         self._stats["seconds"] += dt
-        self._stats["rays"] += rays1 - rays0
+        self._stats["rays"] += self._rays_read - rays0
         return self
 
     def render(self, samples: Optional[int] = None):
+        """Step until `samples` (the scene's own count by default) are
+        accumulated, in one step call: it knows how many batches follow."""
         target = samples if samples is not None else self.scene.samples
-        while float(self.count) < target:
-            self.step()
+        left = -(-int(target - float(self.count)) // self.cfg.batch_spp)
+        if left > 0:
+            self.step(left)
         return self
 
     # ---- outputs --------------------------------------------------------

@@ -218,6 +218,10 @@ class InteractiveViewer:
             return self._frame, dict(self._frame_meta), self._frame_id
 
     def start(self):
+        # both renderers' graphs before the first event: an event that
+        # lands during a capture would wait for it
+        self.renderer.warm_up()
+        self.preview.warm_up()
         self.running = True
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()

@@ -12,6 +12,10 @@ exits.
 The spans, each where its work happens:
 
   fspt.step           runtime/renderer.py Renderer.step, its whole body
+  fspt.replay         runtime/renderer.py StepGraph.replay: one launch of
+                      a captured sample batch (on a card, every batch after
+                      a Renderer's first); the phases below then run on
+                      the device alone and show no span
   fspt.traverse       core/integrator.py intersect (and the heatmap's
                       launch, and Renderer.autofocus's walk): one a launch
   fspt.shade          core/integrator.py _bounce: _shade_and_scatter

@@ -35,7 +35,7 @@ def run_control(workload: str, seed: int, device: str = "cuda",
     c = m.config(cell["config"])
     mix = m.traffic(cell["traffic"])
     r = config(c["render"], seed)
-    assets = Assets(c["assets"])
+    assets = Assets(c["assets"], m.bench)
     if mix["kind"] == "train":
         low = reference_train(c["scene"], assets, r, mix, device, lowp=True)
         ref = reference_train(c["scene"], assets, r, mix, device)

@@ -4,7 +4,9 @@ program under test, `fspt_tpu` the JAX package beside it.
 
   * the process that prints a result holds none of FORBIDDEN;
   * the harness's sources import none of FORBIDDEN;
-  * the plain reference's sources import none of FORBIDDEN nor the program.
+  * the plain reference's sources, and the asset generators the program
+    and the reference are both given (generators/), import none of
+    FORBIDDEN nor the program.
 """
 
 from __future__ import annotations
@@ -59,9 +61,10 @@ def _sources(root: str):
 def violations(root: str = BENCH) -> List[str]:
     """'path: module' for every import the rules above refuse."""
     bad = []
-    ref = os.path.join(root, "reference")
+    apart = tuple(os.path.join(root, d) + os.sep
+                  for d in ("reference", "generators"))
     for path in _sources(root):
-        refused = FORBIDDEN + ((PROGRAM,) if path.startswith(ref + os.sep)
+        refused = FORBIDDEN + ((PROGRAM,) if path.startswith(apart)
                                else ())
         bad += [f"{os.path.relpath(path, root)}: {m}"
                 for m in imports_of(path) if top(m) in refused]

@@ -4,9 +4,14 @@ A cell of `workloads` names a configuration (`fsptbench/configs/<config>.json`,
 through `configs[].file`) and a traffic mix (`fsptbench/traffic/<mix>.json`);
 each metric is read by `fsptbench/metrics/<name>.py` (a `read(run)` that
 returns a number, or None where it finds nothing to read); a cell's
-correctness limits are `fsptbench/checks/<cell>.json`.  Adding a
-configuration, a mix, a metric or a cell is adding files and entries: no
-file here changes.
+correctness limits are `fsptbench/checks/<cell>.json`; an asset kind that
+scenegen.py does not build in is made by `fsptbench/generators/<kind>.py`
+(a `make(params)` that returns OBJ text or an RGBA uint8 image).  Adding a
+configuration, a generator, a mix of one of drive.KINDS (progressive,
+drag, train), a metric, a cell or its checks is adding files and entries:
+no file here changes.  A new traffic kind (an entry of drive.KINDS) or a
+scene feature that the plain reference does not state yet
+(reference/scene.py lists what it states) needs an edit.
 
 A cell kept out of BENCHMARK.json waits in `fsptbench/parked/<cell>.json`
 (its `workloads` entry and the metric entries only it reports);
@@ -75,8 +80,13 @@ class Manifest:
     def reader(self, metric: str):
         """The `read(run)` of fsptbench/metrics/<metric>.py."""
         path = os.path.join(self.bench, "metrics", f"{metric}.py")
-        spec = importlib.util.spec_from_file_location(
-            "fsptbench.metrics." + metric.replace(".", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return load_module(path, "fsptbench.metrics."
+                           + metric.replace(".", "_")).read
+
+
+def load_module(path: str, name: str):
+    """The module of the Python file at `path`, run afresh."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -1,6 +1,8 @@
-"""span_ms.compact: the self time of the program's `fspt.compact`
-spans in the profiled slice (_compact: roulette keys, sort, row gathers),
-in ms over the slice's samples."""
+"""span_ms.compact: the self time of the program's `fspt.compact` spans in
+the profiled slice (_compact: roulette keys, sort, row gathers), in ms
+over the slice's samples. No cell of BENCHMARK.json reports it: a step
+replayed as a CUDA graph opens no phase span, so it reads None there;
+eager steps still have the span."""
 
 from fsptbench.spans import ms_per
 

@@ -1,6 +1,8 @@
-"""span_ms.traverse: the self time of the program's `fspt.traverse`
-spans in the profiled slice (integrator.intersect: the host's dispatch of
-each traversal launch), in ms over the slice's samples."""
+"""span_ms.traverse: the self time of the program's `fspt.traverse` spans
+in the profiled slice (integrator.intersect: the host's dispatch of each
+traversal launch), in ms over the slice's samples. No cell of
+BENCHMARK.json reports it: a step replayed as a CUDA graph opens no
+phase span, so it reads None there; eager steps still have the span."""
 
 from fsptbench.spans import ms_per
 

@@ -20,6 +20,21 @@ followed:
     of the step compete as one pool;
   * the radiance clamp per sample, before the samples are summed.
 
+With `use_light_nee` each bounce also samples the scene's area lights
+(reference/scene.py lists them), as the renderer's configuration states
+its estimator: the bounce's uniform 8 picks a light by the area-weighted
+CDF (the first whose CDF value is at least the uniform), uniforms 9 and 10
+place a uniform point on it by the square-root warp (barycentrics
+1 - sqrt(u9) on corner 1 and u10 sqrt(u9) on corner 2), and an unblocked
+shadow segment (to 1e-3 short of the point) adds the sampled lobe's
+throughput times the light's emittance over the light's pdf (dist^2 over
+|cos| at the light times the total area), weighted by the power heuristic
+against the lobe's pdf.  No light is sampled at a dielectric hit or where
+the point lies below the surface.  An emitter that a path hits has its
+emittance weighted by the power heuristic of the pdf of the ray that made
+the hit (1e16 for primary rays; a refraction keeps the pdf of the ray
+before it) against the light pdf of that hit.
+
 `lowp=True` stores the path state (rays, hit distance, throughput and
 gathered radiance) in bfloat16 after every stage: the control run that the
 comparison must reject.
@@ -93,9 +108,9 @@ def config(render: dict, seed: int) -> dict:
     refraction segments)."""
     cfg = dict(render, seed=seed)
     cfg["max_iters"] = cfg["bounces"] + cfg["extra_refraction_iters"]
-    if cfg["mode"] != "render" or cfg["use_light_nee"]:
+    if cfg["mode"] != "render":
         raise NotImplementedError("the plain reference states the render "
-                                  "mode without light NEE")
+                                  "mode only")
     return cfg
 
 
@@ -113,6 +128,9 @@ class Paths:
         self.color = V3(z(), z(), z())
         self.bounces = torch.zeros(L, dtype=torch.int32, device=dev)
         self.alive = torch.zeros(L, dtype=torch.bool, device=dev)
+        # the pdf of the ray that made the current hit (light NEE's MIS)
+        self.prev_pdf = torch.full((L,), 1.0e16, dtype=torch.float32,
+                                   device=dev)
         self.k0, self.k1, self.lane, self.sample = k0, k1, lane, sample
 
 
@@ -308,8 +326,14 @@ class Reference:
         hit_p = o + d * t
         eps2 = cfg["epsilon"] * 2.0
         offset_out = hit_p + macro_n * eps2
+        hit_emit = thr * emitt
+        nee_lights = cfg["use_light_nee"]
+        if nee_lights:
+            cos_l = torch.abs(dot(bary_n, -d))
+            pdf_hit = t * t / torch.clamp(cos_l * s.light_area, min=1e-12)
+            hit_emit = hit_emit * sh.mis_weights(p.prev_pdf[idx], pdf_hit)[0]
         color = color + (thr * emissive * diffuse * cfg["emissive_scale"]
-                         + thr * emitt)
+                         + hit_emit)
         incident = -d
         micro_n = sh.sample_ggx(macro_n, roughness, u[0], u[1])
         env = self.env
@@ -351,8 +375,14 @@ class Reference:
                     for c in diffuse))
         bsdf_thr = where(inside, beer, bsdf_thr)
         w_env, w_bsdf = sh.mis_weights(env_pdf, bsdf_pdf)
+        lights = nee_lights and s.lights.numel() > 0
+        if lights:
+            light_thr, light_l, w_light, light_dir, light_t, lit = self._light(
+                u, offset_out, macro_n, incident, diffuse, metallic,
+                roughness, specular, diel, bsdf_pdf)
 
         # the scattered ray and, where wanted, the environment's shadow ray
+        # and the light's
         shadow = (diel < 0.0) & (cos_env > 0.0)
         m = idx.numel()
         sidx = torch.nonzero(shadow).squeeze(1)
@@ -361,11 +391,23 @@ class Reference:
         rd = V3(*(torch.cat([a, b[sidx]]) for a, b in zip(new_dir,
                                                              env_dir)))
         tmax = torch.full((ro.x.shape[0],), self.max_t, device=u.device)
+        if lights:
+            lidx = torch.nonzero(lit).squeeze(1)
+            ro = V3(*(torch.cat([a, b[lidx]]) for a, b in zip(ro,
+                                                                offset_out)))
+            rd = V3(*(torch.cat([a, b[lidx]]) for a, b in zip(rd,
+                                                                light_dir)))
+            tmax = torch.cat([tmax, light_t[lidx]])
         ht, htri, hu, hv = self._cast(ro, rd, tmax)
         open_ = torch.zeros(m, dtype=torch.bool, device=u.device)
-        open_[sidx] = htri[m:] < 0
+        open_[sidx] = htri[m:m + sidx.numel()] < 0
         nee = thr * env_thr * nee_l * w_env
         color = color + where(shadow & open_, nee, zero)
+        if lights:
+            l_open = torch.zeros(m, dtype=torch.bool, device=u.device)
+            l_open[lidx] = htri[m + sidx.numel():] < 0
+            color = color + where(lit & l_open,
+                                  thr * light_thr * light_l * w_light, zero)
         thr = thr * bsdf_thr
         miss = htri[:m] < 0
         esc_l = (sh.env_nearest(env, new_dir, s.env_theta)
@@ -382,3 +424,33 @@ class Reference:
         p.tri[idx], p.u[idx], p.v[idx] = htri[:m], hu[:m], hv[:m]
         p.bounces[idx] = bounces
         p.alive[idx] = ~miss & (bounces < cfg["bounces"])
+        if nee_lights:
+            p.prev_pdf[idx] = torch.where(refractive, p.prev_pdf[idx],
+                                          bsdf_pdf)
+
+    def _light(self, u, origin: V3, n: V3, incident: V3, diffuse: V3,
+               metallic, roughness, specular, diel, bsdf_pdf):
+        """One area-light sample a lane: (the sampled lobe's throughput
+        over the light's pdf, the light's emittance, the MIS weight, the
+        direction to the point, the shadow segment's length, where it is
+        wanted)."""
+        s = self.scene
+        pick = torch.clamp(torch.searchsorted(s.light_cdf, u[8]), 0,
+                           s.lights.numel() - 1)
+        tri = s.lights[pick]
+        a, e1, e2 = V3.of(s.v0[tri]), V3.of(s.e1[tri]), V3.of(s.e2[tri])
+        r = torch.sqrt(u[9])
+        to = a + e1 * (1.0 - r) + e2 * (u[10] * r) - origin
+        dist2 = dot(to, to)
+        dist = torch.sqrt(dist2)
+        wi = to * torch.reciprocal(torch.clamp(dist, min=1e-12))
+        cos_light = torch.abs(dot(normalize(sh.cross(e1, e2)), -wi))
+        pdf = dist2 / torch.clamp(cos_light * s.light_area, min=1e-12)
+        cos_s = dot(n, wi)
+        lobe = where(specular,
+                     sh.eval_specular(incident, n, diffuse, metallic,
+                                      roughness, wi),
+                     diffuse * sh.INV_PI)
+        return (lobe * (torch.clamp(cos_s, 0.0, 1.0) / pdf),
+                V3.of(self.emit[tri]), sh.mis_weights(pdf, bsdf_pdf)[0],
+                wi, dist * (1.0 - 1e-3), (diel < 0.0) & (cos_s > 0.0))

@@ -11,8 +11,13 @@ texture_packer.js, env_sampler.js), written out plainly in NumPy.
 
 Supported: props with v/vt/f OBJ text, rotate/scale/translate, "smooth" and
 "flat" normals, flat or image material maps, RGBE or gradient
-environments.  Anything else raises, so a configuration the reference
-cannot state is refused rather than compared loosely.
+environments, assets of any generator (fsptbench/scenegen.py: built in or
+found by name under generators/), and the area lights that light NEE
+samples: every triangle of a prop whose emittance sums to more than 0, in
+file order, with their total area and an area-weighted CDF.  Anything else
+raises (a multi-material OBJ too: a configuration gives each material a
+prop of its own), so a configuration the reference cannot state is refused
+rather than compared loosely.
 """
 
 from __future__ import annotations
@@ -282,6 +287,9 @@ class RefScene:
     env_theta: float
     camera: dict
     samples: int
+    lights: torch.Tensor      # (Lt,) int64 triangle ids of the emitters
+    light_cdf: torch.Tensor   # (Lt,) f32 area-weighted CDF, ending at 1
+    light_area: float         # their total area (f32)
 
 
 def compile_scene(scene: dict, loader, device) -> RefScene:
@@ -315,19 +323,28 @@ def compile_scene(scene: dict, loader, device) -> RefScene:
             layers.append(_map_image(images[value], res, corrected, swizzle)
                           if kind == "image" else _flat(value, res))
         m = len(tv)
-        emit = np.broadcast_to(np.asarray(prop.get("emittance", [0, 0, 0]),
-                                          np.float64)[:3], (m, 3))
+        emittance = np.asarray(prop.get("emittance", [0, 0, 0]),
+                               np.float64)[:3]
+        emit = np.broadcast_to(emittance, (m, 3))
         ior = float(prop.get("ior") or 1.4)
         diel = float(prop.get("dielectric") or -1.0)
         parts.append((tv, np.concatenate(
             [tn.reshape(m, 9), tang.reshape(m, 9), bitang.reshape(m, 9),
              tuv.reshape(m, 6), emit, np.full((m, 1), ior),
-             np.full((m, 1), diel)], axis=1), np.tile(ids, (m, 1))))
+             np.full((m, 1), diel)], axis=1), np.tile(ids, (m, 1)),
+            emittance.sum() > 0))
     if not parts:
         raise ValueError("scene contains no geometry")
     tv = np.concatenate([p[0] for p in parts]).astype(np.float32)
     f32 = lambda a: torch.from_numpy(
         np.ascontiguousarray(a, np.float32)).to(device)
+    first = np.cumsum([0] + [len(p[0]) for p in parts])
+    lights = np.concatenate([np.arange(first[i], first[i + 1])
+                             for i, p in enumerate(parts) if p[3]] + [[]]
+                            ).astype(np.int64)
+    e1 = tv[lights, 1].astype(np.float64) - tv[lights, 0]
+    e2 = tv[lights, 2].astype(np.float64) - tv[lights, 0]
+    area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
     return RefScene(
         v0=f32(tv[:, 0]), e1=f32(tv[:, 1] - tv[:, 0]),
         e2=f32(tv[:, 2] - tv[:, 0]),
@@ -340,4 +357,7 @@ def compile_scene(scene: dict, loader, device) -> RefScene:
                 "direction": scene.get("cameraDir", [0.0, 0.0, -1.0]),
                 "fov_scale": float(scene.get("fovScale", 0.5)),
                 "focal_depth": 1e6, "aperture": 0.0},
-        samples=int(scene.get("samples", 2000)))
+        samples=int(scene.get("samples", 2000)),
+        lights=torch.from_numpy(lights).to(device),
+        light_cdf=f32(np.cumsum(area) / max(area.sum(), 1e-30)),
+        light_area=float(np.float32(area.sum())))

@@ -63,7 +63,7 @@ class Run:
         from fsptbench.reference.render import config
         from fsptbench.scenegen import Assets
         c = self.config
-        self.assets = Assets(c["assets"])
+        self.assets = Assets(c["assets"], self.manifest.bench)
         self.scene_dict = c["scene"]
         self.scene = load_scene_dict(self.scene_dict, self.assets,
                                      name=c["name"], **c["loader"])

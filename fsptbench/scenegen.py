@@ -3,7 +3,11 @@ alike to the program and to the plain reference: OBJ text, RGBA images and
 the scene dict (upstream FSPT's scene JSON schema).
 
 A configuration file names its assets under "assets", each with a
-generator `kind` of this module's GENERATORS and its parameters.  The
+generator `kind` and its parameters.  A kind of this module's GENERATORS
+is built in; any other kind is the `make(params)` of
+`<bench>/generators/<kind>.py`, which returns OBJ text (str) or an RGBA
+uint8 image (H, W, 4).  A generator file imports nothing of the program
+(importcheck), so the program never makes its own inputs.  The
 generators are fixed functions of their parameters, so the inputs of a
 configuration are the same in every run.
 """
@@ -11,8 +15,11 @@ configuration are the same in every run.
 from __future__ import annotations
 
 import io
+import os
 
 import numpy as np
+
+from fsptbench.manifest import BENCH, load_module
 
 
 def icosphere_obj(subdivisions: int) -> str:
@@ -105,13 +112,39 @@ GENERATORS = {
 }
 
 
+def generator(kind: str, bench: str = BENCH):
+    """The function that makes assets of `kind`: a built-in one, or the
+    `make` of <bench>/generators/<kind>.py."""
+    if kind in GENERATORS:
+        return GENERATORS[kind]
+    path = os.path.join(bench, "generators", f"{kind}.py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no asset generator {kind!r}: {path} does not exist")
+    return load_module(path, "fsptbench.generators."
+                       + kind.replace(".", "_")).make
+
+
+def _checked(name: str, item):
+    if isinstance(item, str):
+        return item
+    if (isinstance(item, np.ndarray) and item.dtype == np.uint8
+            and item.ndim == 3 and item.shape[2] == 4):
+        return item
+    raise TypeError(f"asset {name!r}: a generator returns OBJ text or an "
+                    f"RGBA uint8 (H, W, 4) array, not {type(item).__name__}"
+                    f" {getattr(item, 'dtype', '')}"
+                    f"{getattr(item, 'shape', '')}")
+
+
 class Assets:
     """The asset loader both sides read: OBJ text and RGBA uint8 images by
-    the names of the scene dict."""
+    the names of the scene dict.  `bench` is the benchmark directory whose
+    generators/ holds the kinds that are not built in."""
 
-    def __init__(self, specs: dict):
-        self.items = {name: GENERATORS[spec["kind"]](spec)
-                      for name, spec in specs.items()}
+    def __init__(self, specs: dict, bench: str = BENCH):
+        self.items = {
+            name: _checked(name, generator(spec["kind"], bench)(spec))
+            for name, spec in specs.items()}
 
     def text(self, path: str) -> str:
         return self.items[path]

@@ -23,9 +23,11 @@ def make_small(root, size=64, subdivisions=2):
     from fsptbench.manifest import Manifest
     bench = os.path.join(root, "fsptbench")
     os.makedirs(bench, exist_ok=True)
-    for d in ("configs", "traffic", "checks", "metrics", "parked"):
-        shutil.copytree(os.path.join(BENCH, d), os.path.join(bench, d),
-                        dirs_exist_ok=True)
+    for d in ("configs", "traffic", "checks", "metrics", "parked",
+              "generators"):
+        if os.path.isdir(os.path.join(BENCH, d)):
+            shutil.copytree(os.path.join(BENCH, d), os.path.join(bench, d),
+                            dirs_exist_ok=True)
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         b = json.load(f)
     for c in b["configs"]:

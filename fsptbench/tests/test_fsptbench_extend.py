@@ -1,13 +1,19 @@
 """A configuration, a traffic mix, a per-layer metric and a cell added as
 new files and entries only: the harness runs the cell and reports the
-metric with no edit to a file it had."""
+metric with no edit to a file it had.  An asset kind that scenegen.py does
+not build in is found by name in the bench's generators/."""
 
 import json
 import os
 
+import numpy as np
+import pytest
+
 from conftest import make_small
 from fsptbench.manifest import Manifest
+from fsptbench.reference.render import config
 from fsptbench.run import run_cell
+from fsptbench.scenegen import Assets
 
 
 def test_throwaway_entries_are_found_by_name(tmp_path):
@@ -48,3 +54,35 @@ def test_throwaway_entries_are_found_by_name(tmp_path):
     assert r["correct"], r["checks"]
     assert r["metrics"]["steps_done"]["value"] == r["attempted"] >= 1
     assert set(r["metrics"]) == {"steps_done", "setup_s"}
+
+
+def test_asset_generators_found_by_name(tmp_path):
+    gen = tmp_path / "generators"
+    gen.mkdir()
+    (gen / "stripes.py").write_text(
+        "import numpy as np\n\n\ndef make(p):\n"
+        "    img = np.zeros((p['res'], p['res'], 4), np.uint8)\n"
+        "    img[::2] = 255\n    return img\n")
+    (gen / "wrong.py").write_text(
+        "import numpy as np\n\n\ndef make(p):\n"
+        "    return np.zeros((4, 4, 3), np.float32)\n")
+    a = Assets({"s.png": {"kind": "stripes", "res": 8},
+                "q.obj": {"kind": "quad"}}, str(tmp_path))
+    assert a.image("s.png").shape == (8, 8, 4)
+    assert a.image("s.png")[0, 0, 0] == 255 and a.image("s.png")[1, 0, 0] == 0
+    assert a.text("q.obj").startswith("v ")
+    with pytest.raises(KeyError, match=str(gen / "absent.py")):
+        Assets({"x.obj": {"kind": "absent"}}, str(tmp_path))
+    with pytest.raises(TypeError, match="RGBA uint8"):
+        Assets({"w.png": {"kind": "wrong"}}, str(tmp_path))
+    assert np.array_equal(
+        Assets({"c": {"kind": "checker", "res": 4, "squares": 2}}).items["c"],
+        Assets({"c": {"kind": "checker", "res": 4, "squares": 2}},
+               str(tmp_path)).items["c"])
+
+
+def test_reference_states_the_render_mode_only():
+    render = Manifest().config("bunny8_main")["render"]
+    assert config(dict(render, use_light_nee=True), 1)["use_light_nee"]
+    with pytest.raises(NotImplementedError):
+        config(dict(render, mode="bvh_heatmap"), 1)

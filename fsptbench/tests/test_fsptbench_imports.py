@@ -33,6 +33,16 @@ def test_planted_imports_are_found(tmp_path):
     assert "harness.py: fspt_tpu_torch" not in bad
 
 
+def test_generators_are_held_to_the_reference_rule(tmp_path):
+    (tmp_path / "generators").mkdir()
+    (tmp_path / "generators" / "mesh.py").write_text(
+        "import numpy as np\nfrom fspt_tpu_torch.testing import "
+        "make_test_scene\n")
+    (tmp_path / "generators" / "sky.py").write_text("import numpy\n")
+    assert importcheck.violations(str(tmp_path)) == [
+        os.path.join("generators", "mesh.py") + ": fspt_tpu_torch.testing"]
+
+
 def test_the_process_of_a_cpu_run_holds_no_jax():
     # the benchmark's own modules, the program and the reference
     import fsptbench.drive  # noqa: F401

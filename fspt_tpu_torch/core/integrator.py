@@ -251,12 +251,16 @@ class TexTables(NamedTuple):
           shading filter the flat env planes instead (env_radiance).
       bins4: (B, 4) — env importance bins as rows.
       atlas_rows: (L*R*R, 3) — per-map fallback table.
+      light_cdf, light_area: the area lights' CDF and total area
+          (light_tables), with cfg.use_light_nee; else None.
     """
 
     mat_tex: Optional[torch.Tensor]
     env6: Optional[torch.Tensor]
     bins4: torch.Tensor
     atlas_rows: torch.Tensor
+    light_cdf: Optional[torch.Tensor] = None
+    light_area: Optional[torch.Tensor] = None
 
 
 # Packed-material-table memory guard: combined (U, R, R, 24) f32 texels.
@@ -281,8 +285,23 @@ def _packed_tables(scene, cfg: RenderConfig, meta) -> TexTables:
     env6 = pack_env_rows(scene.env_rgb, (meta.env_h, meta.env_w))
     bins4 = torch.stack([scene.bin_x0, scene.bin_y0, scene.bin_x1,
                          scene.bin_y1], dim=-1)
+    lights = light_tables(scene) if cfg.use_light_nee else (None, None)
     return TexTables(mat_tex=mat_tex, env6=env6, bins4=bins4,
-                     atlas_rows=atlas_rows)
+                     atlas_rows=atlas_rows, light_cdf=lights[0],
+                     light_area=lights[1])
+
+
+def light_tables(scene):
+    """The area lights' CDF (float32) and total area (0-d float32), their
+    areas summed in float64.  The scene compiler's light_cdf is a float32
+    running sum: over thousands of light triangles it drifts by up to a few
+    1e-6, which moves ~1e-3 of the light picks."""
+    rows = lambda v: torch.stack([v.x, v.y, v.z], dim=-1).double()
+    area = 0.5 * torch.linalg.norm(torch.linalg.cross(
+        rows(scene.light_e1), rows(scene.light_e2)), dim=-1)
+    total = area.sum()
+    cdf = torch.cumsum(area, 0) / torch.clamp(total, min=1e-20)
+    return cdf.float(), total.float()
 
 
 def atlas_fetch_all(mat_tex, meta, map_c, u, v):
@@ -330,13 +349,20 @@ class TraceStats(NamedTuple):
     over its lanes, whose meaning is the intersector's: the ray's own node
     and leaf fetches under "split" (ops/traverse4), the group's shared visit
     count under "walk" and "packet" (ops/traverse3, ops/traverse; as on the
-    TPU), 0 under "brute"."""
+    TPU), 0 under "brute".  shadow counts env and light shadow lanes
+    together; light, the light ones alone, is None without
+    cfg.use_light_nee.  refracted is counted only where the trace is asked
+    to (trace_paths' count_refracted), else None: neither adds an
+    operation to a trace that does not count it."""
 
     rays: torch.Tensor        # () f32
     active: torch.Tensor      # (max_iters,) f32 live scatter lanes per it
     shadow: torch.Tensor      # (max_iters,) f32 live shadow lanes per it
     visits: torch.Tensor      # (max_iters,) f32 summed visits of scatter lanes
     rr_lanes: torch.Tensor    # () f32 active lanes dropped by compaction
+    light: Optional[torch.Tensor] = None      # (max_iters,) f32 light lanes
+    refracted: Optional[torch.Tensor] = None  # (max_iters,) f32 lanes that
+    #                                           took the refraction branch
 
 
 # RNG stream id base for compaction survivor selection (streams 1..max_iters
@@ -474,7 +500,7 @@ def _primary_state(scene, cfg, meta, tex, origin, direction, lidx, gid):
 
 
 def _bounce(scene, cfg, meta, attr, tex, state, it, key, key_rows=None,
-            lanes_per_key=0):
+            lanes_per_key=0, count_refracted=False):
     """One bounce iteration: optional state sort, the iteration's
     uniforms, shading and the traversal launch."""
     if cfg.sort_state:
@@ -485,11 +511,18 @@ def _bounce(scene, cfg, meta, attr, tex, state, it, key, key_rows=None,
                             key_rows=key_rows, lanes_per_key=lanes_per_key)
     with span("shade"):
         return _shade_and_scatter(scene, cfg, meta, state, u,
-                                  (meta.env_h, meta.env_w), attr, tex)
+                                  (meta.env_h, meta.env_w), attr, tex,
+                                  count_refracted=count_refracted)
 
 
-def _stack_stats(per_it):
-    return tuple(torch.stack([p[i] for p in per_it]) for i in range(3))
+def trace_stats(n: int, per_it, rr_lanes) -> TraceStats:
+    """TraceStats of a trace of n rays from its iterations' counts (each
+    _shade_and_scatter's second result); a count an iteration leaves None
+    stays None."""
+    c = [None if p[0] is None else torch.stack(p) for p in zip(*per_it)]
+    return TraceStats(rays=float(n) + c[0].sum() + c[1].sum(), active=c[0],
+                      shadow=c[1], visits=c[2], rr_lanes=rr_lanes,
+                      light=c[3], refracted=c[4])
 
 
 def _clip(x, lo: float, hi: float):
@@ -512,11 +545,13 @@ def _deposit(drops, state, n):
 
 
 def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
-                key, lane_offset=0, return_stats: bool = False):
+                key, lane_offset=0, return_stats: bool = False,
+                count_refracted: bool = False):
     """Path-trace one sample for every input ray.  Returns V3 (N,) radiance
-    (or (radiance, TraceStats) when return_stats).  key: host key data
-    or its (2,) int64 device row (core/rng.py).  lane_offset: global lane
-    id of ray 0, or an (N,) tensor of explicit ids."""
+    (or (radiance, TraceStats) when return_stats; TraceStats.refracted
+    counted with count_refracted).  key: host key data or its (2,) int64
+    device row (core/rng.py).  lane_offset: global lane id of ray 0, or an
+    (N,) tensor of explicit ids."""
     _check_streams(cfg)
     n = origin.x.shape[0]
     dev = origin.x.device
@@ -525,7 +560,8 @@ def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
     else:
         gid0 = int(lane_offset) + torch.arange(n, dtype=torch.int32,
                                                device=dev)
-    tex = _packed_tables(scene, cfg, meta)
+    with span("tables"):
+        tex = _packed_tables(scene, cfg, meta)
     attr = _attr_table(scene)
     state = _primary_state(scene, cfg, meta, tex, origin, direction,
                            torch.arange(n, dtype=torch.int32, device=dev),
@@ -535,7 +571,8 @@ def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
     per_it = []
     if not cfg.compact:
         for it in range(cfg.max_iters):
-            state, p = _bounce(scene, cfg, meta, attr, tex, state, it, key)
+            state, p = _bounce(scene, cfg, meta, attr, tex, state, it, key,
+                               count_refracted=count_refracted)
             per_it.append(p)
         if cfg.sort_state:
             # state lanes are in Morton order; map colors back to rays
@@ -553,7 +590,7 @@ def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
                 rr_lanes = rr_lanes + dropped
             for it in range(it0, it0 + count):
                 state, p = _bounce(scene, cfg, meta, attr, tex, state, it,
-                                   key)
+                                   key, count_refracted=count_refracted)
                 per_it.append(p)
             it0 += count
         acc = _deposit(drops, state, n)
@@ -562,11 +599,7 @@ def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
     radiance = V3(*(_clip(p, 0.0, cfg.radiance_clamp) for p in c))
     if not return_stats:
         return radiance
-    n_active, n_shadow, visits = _stack_stats(per_it)
-    stats = TraceStats(rays=float(n) + n_active.sum() + n_shadow.sum(),
-                       active=n_active, shadow=n_shadow, visits=visits,
-                       rr_lanes=rr_lanes)
-    return radiance, stats
+    return radiance, trace_stats(n, per_it, rr_lanes)
 
 
 def _merged_groups(cfg: RenderConfig, n_per: int, n_tot: int):
@@ -624,7 +657,8 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
     else:
         key_rows = rng.key_rows_tensor(
             rng.key_rows_for(batch_key, k_samples), dev)
-    tex = _packed_tables(scene, cfg, meta)
+    with span("tables"):
+        tex = _packed_tables(scene, cfg, meta)
     attr = _attr_table(scene)
     groups_a, its_a, groups_b = _merged_groups(cfg, n_per, n_tot)
 
@@ -668,8 +702,9 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
     rr_lanes = (torch.stack(rr).sum() if rr
                 else torch.zeros((), dtype=torch.float32, device=dev))
     # phase-A stats summed over the batch, per iteration
-    per_it = [tuple(sum(per_a[k][i][j] for k in range(k_samples))
-                    for j in range(3)) for i in range(its_a)]
+    per_it = [tuple(None if p[0] is None else sum(p)
+                    for p in zip(*(per_a[k][i] for k in range(k_samples))))
+              for i in range(its_a)]
 
     state = _cat_states(states)
     it0 = its_a
@@ -694,11 +729,7 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
     radiance = V3(total[:, 0], total[:, 1], total[:, 2])
     if not return_stats:
         return radiance
-    n_active, n_shadow, visits = _stack_stats(per_it)
-    stats = TraceStats(rays=float(n_tot) + n_active.sum() + n_shadow.sum(),
-                       active=n_active, shadow=n_shadow, visits=visits,
-                       rr_lanes=rr_lanes)
-    return radiance, stats
+    return radiance, trace_stats(n_tot, per_it, rr_lanes)
 
 
 def traversal_launches(cfg: RenderConfig, n_per: int, k_samples: int) -> int:
@@ -746,7 +777,8 @@ def _attr_table(scene):
 
 
 def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
-                       env_hw, attr, tex: TexTables, trace_fn=None):
+                       env_hw, attr, tex: TexTables, trace_fn=None,
+                       count_refracted: bool = False):
     """One shading+scatter iteration (tracer.fs:447-518): hit attributes,
     atlas fetches, emissive add, lobe choice, env NEE (and area-light NEE
     with cfg.use_light_nee) with MIS, and the traversal: ONE nearest-hit
@@ -757,7 +789,12 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     trace_fn(o, d, active, tmax, any_hit=False) -> PacketHit (measurement
     only, as in the JAX version: scripts/r5common.py captures the bounce-0
     launch with it) replaces the sorted_intersect launches; production
-    callers leave it None."""
+    callers leave it None.
+
+    Returns the next state and the iteration's counts: live scatter lanes,
+    shadow lanes, the scatter lanes' visits, light shadow lanes (None
+    without light NEE) and, with count_refracted, the lanes that took the
+    refraction branch (else None)."""
     if trace_fn is None:
         def trace_fn(o, d, a, tmax, any_hit=False):
             return sorted_intersect(scene, cfg, meta, o, d, a, tmax,
@@ -788,16 +825,18 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     bary_bt = _corner_lerp(col3(18), col3(21), col3(24), w0, bu, bv)
 
     # ---- atlas fetches (tracer.fs:453-456) -----------------------------
-    if tex.mat_tex is not None:
-        map_c = row[:, 42].detach().to(torch.int32)             # JAX :896
-        tex_diffuse, tex_emissive, tn, mr = atlas_fetch_all(
-            tex.mat_tex, meta, map_c, tex_u, tex_v)
-    else:
-        ar = tex.atlas_rows
-        fetch = lambda col: atlas_fetch_rgb(                    # JAX :900-903
-            meta, row[:, col].detach().to(torch.int32), tex_u, tex_v, ar)
-        tex_diffuse, tex_emissive = fetch(38), fetch(39)
-        mr, tn = fetch(41), fetch(40)
+    with span("atlas"):
+        if tex.mat_tex is not None:
+            map_c = row[:, 42].detach().to(torch.int32)         # JAX :896
+            tex_diffuse, tex_emissive, tn, mr = atlas_fetch_all(
+                tex.mat_tex, meta, map_c, tex_u, tex_v)
+        else:
+            ar = tex.atlas_rows
+            fetch = lambda col: atlas_fetch_rgb(                # JAX :900-903
+                meta, row[:, col].detach().to(torch.int32), tex_u, tex_v,
+                ar)
+            tex_diffuse, tex_emissive = fetch(38), fetch(39)
+            mr, tn = fetch(41), fetch(40)
     metallic, roughness = mr.x, mr.y * mr.y              # tracer.fs:457
     tex_normal = V3((tn.x - 0.5) * 2.0, (tn.y - 0.5) * 2.0, tn.z)
 
@@ -818,7 +857,7 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
         # bsdf pdf that produced this hit: standard emitter-hit MIS
         cos_l = torch.abs(dot(bary_n, -s.direction))
         p_light_hit = (s.t * s.t) / torch.clamp(
-            cos_l * scene.light_area, min=1e-12)
+            cos_l * tex.light_area, min=1e-12)
         w_hit, _ = brdf.mis_weights(s.prev_pdf, p_light_hit)
         emit_add = (s.throughput * tex_emissive * tex_diffuse
                     * cfg.emissive_scale + s.throughput * emitt * w_hit)
@@ -913,30 +952,31 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     seg_a = [active, shadow_wanted]
 
     if cfg.use_light_nee:
-        last = scene.light_cdf.shape[0] - 1
-        li = torch.clamp(torch.searchsorted(scene.light_cdf,
-                                            u[8].detach()),      # JAX :1030
-                         0, last)
-        lv0 = vec.gather(scene.light_v0, li)
-        le1 = vec.gather(scene.light_e1, li)
-        le2 = vec.gather(scene.light_e2, li)
-        su = torch.sqrt(u[9].detach())                           # JAX :1035
-        u10 = u[10].detach()                                     # JAX :1036
-        p_l = lv0 + le1 * (1.0 - su) + le2 * (u10 * su)
-        to_l = p_l - offset_out
-        dist2 = dot(to_l, to_l)
-        dist = torch.sqrt(dist2)
-        wi = to_l * torch.reciprocal(torch.clamp(dist, min=1e-12))
-        ln = normalize(vec.cross(le1, le2))
-        cos_li = torch.abs(dot(ln, -wi))
-        pdf_l = dist2 / torch.clamp(cos_li * scene.light_area, min=1e-12)
-        cos_s = dot(macro_n, wi)
-        light_wanted = (active & (dielectric < 0.0) & (cos_s > 0.0)
-                        & (scene.n_light_tris > 0))
-        seg_o.append(where(light_wanted, offset_out, park))
-        seg_d.append(where(light_wanted, wi, up))
-        seg_t.append(torch.where(light_wanted, dist * (1.0 - 1e-3), 0.0))
-        seg_a.append(light_wanted)
+        with span("light"):
+            last = tex.light_cdf.shape[0] - 1
+            li = torch.clamp(torch.searchsorted(tex.light_cdf,
+                                                u[8].detach()),  # JAX :1030
+                             0, last)
+            lv0 = vec.gather(scene.light_v0, li)
+            le1 = vec.gather(scene.light_e1, li)
+            le2 = vec.gather(scene.light_e2, li)
+            su = torch.sqrt(u[9].detach())                       # JAX :1035
+            u10 = u[10].detach()                                 # JAX :1036
+            p_l = lv0 + le1 * (1.0 - su) + le2 * (u10 * su)
+            to_l = p_l - offset_out
+            dist2 = dot(to_l, to_l)
+            dist = torch.sqrt(dist2)
+            wi = to_l * torch.reciprocal(torch.clamp(dist, min=1e-12))
+            ln = normalize(vec.cross(le1, le2))
+            cos_li = torch.abs(dot(ln, -wi))
+            pdf_l = dist2 / torch.clamp(cos_li * tex.light_area, min=1e-12)
+            cos_s = dot(macro_n, wi)
+            light_wanted = (active & (dielectric < 0.0) & (cos_s > 0.0)
+                            & (scene.n_light_tris > 0))
+            seg_o.append(where(light_wanted, offset_out, park))
+            seg_d.append(where(light_wanted, wi, up))
+            seg_t.append(torch.where(light_wanted, dist * (1.0 - 1e-3), 0.0))
+            seg_a.append(light_wanted)
 
     n = active.shape[0]
     if cfg.split_shadow:
@@ -960,18 +1000,19 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
     # ---- NEE area-light contribution (working version of the
     # reference's dead lightTex path; MIS vs the sampled lobe) -----------
     if cfg.use_light_nee:
-        spec_li = (brdf.eval_specular(incident, macro_n, tex_diffuse,
-                                      metallic, roughness, wi)
-                   * (torch.clamp(cos_s, 0.0, 1.0) / pdf_l))
-        diff_li = (brdf.eval_lambert(tex_diffuse)
-                   * (torch.clamp(cos_s, 0.0, 1.0) / pdf_l))
-        light_tp = where(specular, spec_li,
-                         where(refractive, zero, diff_li))
-        le = vec.gather(scene.emit, scene.light_slot[li].long())
-        l_open = seg_slot(2) < 0
-        w_l, _ = brdf.mis_weights(pdf_l, bsdf_pdf.detach())     # JAX :1101
-        l_nee = s.throughput * light_tp * le * w_l
-        color = color + where(light_wanted & l_open, l_nee, zero)
+        with span("light"):
+            spec_li = (brdf.eval_specular(incident, macro_n, tex_diffuse,
+                                          metallic, roughness, wi)
+                       * (torch.clamp(cos_s, 0.0, 1.0) / pdf_l))
+            diff_li = (brdf.eval_lambert(tex_diffuse)
+                       * (torch.clamp(cos_s, 0.0, 1.0) / pdf_l))
+            light_tp = where(specular, spec_li,
+                             where(refractive, zero, diff_li))
+            le = vec.gather(scene.emit, scene.light_slot[li].long())
+            l_open = seg_slot(2) < 0
+            w_l, _ = brdf.mis_weights(pdf_l, bsdf_pdf.detach())  # JAX :1101
+            l_nee = s.throughput * light_tp * le * w_l
+            color = color + where(light_wanted & l_open, l_nee, zero)
 
     throughput = where(active, s.throughput * bsdf_throughput, s.throughput)
 
@@ -991,9 +1032,14 @@ def _shade_and_scatter(scene, cfg: RenderConfig, meta, s: PathState, u,
 
     f32 = torch.float32
     n_shadow = shadow_wanted.to(f32).sum()
+    n_light = n_refracted = None
     if cfg.use_light_nee:
-        n_shadow = n_shadow + light_wanted.to(f32).sum()
-    per_it = (active.to(f32).sum(), n_shadow, nxt.visits.to(f32).sum())
+        n_light = light_wanted.to(f32).sum()
+        n_shadow = n_shadow + n_light
+    if count_refracted:
+        n_refracted = (active & refractive).to(f32).sum()
+    per_it = (active.to(f32).sum(), n_shadow, nxt.visits.to(f32).sum(),
+              n_light, n_refracted)
 
     return PathState(
         origin=where(active, new_origin, s.origin),

@@ -76,14 +76,25 @@ class CameraState(NamedTuple):
                    aperture=f(c.aperture))
 
 
+def counts_light(cfg: RenderConfig) -> bool:
+    """Whether a renderer's ray count is a (2,) tensor [rays, light
+    shadow rays] (light NEE on a path trace) rather than a 0-d one."""
+    return cfg.use_light_nee and cfg.mode == "render"
+
+
 def _sample_terms(scene, cfg: RenderConfig, meta, cam: CameraState,
                   sample_keys, batch_key, resolution, pixel_idx):
     """Raygen and trace of one sample batch: cfg.batch_spp samples, sample
     i keyed sample_keys[i] (host key data or a (2,) int64 device row);
     batch_key is what trace_paths_batched takes.  Returns (radiance, rays):
-    the (3, N) radiance terms and the ray counts that `_accumulate` adds,
-    one each for the wavefront batch, one a sample otherwise."""
+    the (3, N) radiance terms and the ray counts that `_accumulate` adds
+    (with counts_light(cfg), each [rays, light shadow rays]), one each for
+    the wavefront batch, one a sample otherwise."""
     n = pixel_idx.shape[0]
+    if counts_light(cfg):
+        count = lambda st: torch.stack([st.rays, st.light.sum()])
+    else:
+        count = lambda st: st.rays
 
     def rays_for(k):
         cam_u = rng.stream_uniforms(k, 0, (4, n), device=pixel_idx.device)
@@ -101,7 +112,7 @@ def _sample_terms(scene, cfg: RenderConfig, meta, cam: CameraState,
         radiance, stats = trace_paths_batched(
             scene, cfg, meta, origin, direction, batch_key, n_per=n,
             return_stats=True)
-        return [planes(radiance)], [stats.rays]
+        return [planes(radiance)], [count(stats)]
 
     radiance, rays = [], []
     for spp_i in range(cfg.batch_spp):
@@ -115,7 +126,7 @@ def _sample_terms(scene, cfg: RenderConfig, meta, cam: CameraState,
             r, stats = trace_paths(scene, cfg, meta, origin, direction, k,
                                    return_stats=True)
             radiance.append(planes(r))
-            rays.append(stats.rays)
+            rays.append(count(stats))
     return radiance, rays
 
 
@@ -132,8 +143,9 @@ def sample_step(scene, cfg: RenderConfig, meta, cam: CameraState, accum,
                 count, rays, base_key, sample_idx, resolution, pixel_idx):
     """One progressive sample batch: raygen -> trace -> accumulate.
 
-    accum: (3, N) running radiance sum in pixel_idx order.  count, rays:
-    0-d float32 tensors (rays counts active-lane rays actually traced).
+    accum: (3, N) running radiance sum in pixel_idx order.  count: a 0-d
+    float32 tensor; rays: the active-lane rays actually traced, 0-d, or
+    with counts_light(cfg) (2,) [rays, light shadow rays].
     base_key: host key data (core/rng.py).  Returns (accum, count, rays)."""
     key = rng.sample_key(base_key, sample_idx)
     terms = _sample_terms(scene, cfg, meta, cam,
@@ -262,7 +274,8 @@ class Renderer:
         self.base_key = rng.key(self.cfg.seed)
         self.reset()
         self._stats = {"samples": 0, "seconds": 0.0, "rays": 0.0,
-                       "graph_captures": 0, "graph_replays": 0}
+                       "light_rays": 0.0, "graph_captures": 0,
+                       "graph_replays": 0}
         # on a card: the first sample batch runs eagerly (the warm-up), a
         # later one is captured as a CUDA graph (_graph_due), and replays
         # run every batch after it
@@ -277,8 +290,8 @@ class Renderer:
         z = lambda *s: torch.zeros(s, dtype=torch.float32, device=self.device)
         self.accum = z(3, n)
         self.count = z()
-        self.rays = z()
-        self._rays_read = 0.0
+        self.rays = z(2) if counts_light(self.cfg) else z()
+        self._rays_read = self._light_read = 0.0
         self.sample_idx = 0
 
     def _sync(self):
@@ -344,11 +357,17 @@ class Renderer:
                     self._warm = self._graphs
                 self.sample_idx += 1
             self._sync()
-            rays0, self._rays_read = self._rays_read, float(self.rays)
+            # one read of the counts: [rays, light rays] or rays alone
+            if counts_light(self.cfg):
+                rays, light = self.rays.tolist()
+            else:
+                rays, light = float(self.rays), 0.0
         dt = time.perf_counter() - t0
         self._stats["samples"] += num_batches * self.cfg.batch_spp
         self._stats["seconds"] += dt
-        self._stats["rays"] += self._rays_read - rays0
+        self._stats["rays"] += rays - self._rays_read
+        self._stats["light_rays"] += light - self._light_read
+        self._rays_read, self._light_read = rays, light
         return self
 
     def render(self, samples: Optional[int] = None):
@@ -460,6 +479,8 @@ class Renderer:
     @property
     def stats(self):
         s = dict(self._stats)
+        # "rays" counts the active-lane rays traced, "light_rays" the light
+        # shadow rays among them (0 without light NEE)
         n = self.cfg.width * self.cfg.height
         # upper bound: every launch's full lane count (primary + batched
         # scatter + env shadow, + light shadow when light NEE is on);
@@ -496,9 +517,11 @@ class Renderer:
     @torch.no_grad()
     def step_metrics(self, sample_idx: int = 0):
         """Per-bounce metrics for one unbatched sample: occupancy (live
-        scatter/shadow lane fraction) and mean traversal visits per lane
-        (TraceStats.visits over the lanes: per ray under "split", the
-        group's shared count under "walk" and "packet")."""
+        scatter/shadow lane fraction; of the shadow lanes, the light ones
+        (None without light NEE); the lanes that took the refraction
+        branch) and mean traversal visits per lane (TraceStats.visits over
+        the lanes: per ray under "split", the group's shared count under
+        "walk" and "packet")."""
         n = self.cfg.width * self.cfg.height
         k = rng.fold_in(rng.sample_key(self.base_key, sample_idx), 0)
         cam_u = rng.stream_uniforms(k, 0, (4, n), device=self.device)
@@ -508,13 +531,18 @@ class Renderer:
             self.camera.aperture, self.resolution, cam_u,
             pixel_idx=self.pixel_idx)
         _, st = trace_paths(self.arrays, self.cfg, self.scene.meta, origin,
-                            direction, k, return_stats=True)
+                            direction, k, return_stats=True,
+                            count_refracted=True)
         self._sync()
+        share = lambda c: None if c is None else (c.cpu().numpy()
+                                                  / n).tolist()
         return {
             "rays": float(st.rays),
-            "scatter_occupancy": (st.active.cpu().numpy() / n).tolist(),
-            "shadow_occupancy": (st.shadow.cpu().numpy() / n).tolist(),
-            "visits_per_lane": (st.visits.cpu().numpy() / n).tolist(),
+            "scatter_occupancy": share(st.active),
+            "shadow_occupancy": share(st.shadow),
+            "light_occupancy": share(st.light),
+            "refracted_occupancy": share(st.refracted),
+            "visits_per_lane": share(st.visits),
             "rr_lanes": float(st.rr_lanes),
         }
 

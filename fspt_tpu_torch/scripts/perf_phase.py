@@ -75,8 +75,8 @@ from fspt_tpu_torch.core.integrator import (TraceStats, _attr_table, _clip,
                                             _deposit, _packed_tables,
                                             _primary_state,
                                             _shade_and_scatter, _sort_state,
-                                            _stack_stats, sorted_intersect,
-                                            trace_paths)
+                                            sorted_intersect, trace_paths,
+                                            trace_stats)
 from fspt_tpu_torch.core.rng import stream_uniforms
 from fspt_tpu_torch.core.vec import V3
 from fspt_tpu_torch.ops import traverse, traverse3, traverse4
@@ -137,11 +137,7 @@ def _tail(cfg, acc, per_it, n, rr_lanes):
     the per-iteration stats."""
     radiance = V3(*(_clip(acc[:, i], 0.0, cfg.radiance_clamp)
                     for i in range(3)))
-    n_active, n_shadow, visits = _stack_stats(per_it)
-    stats = TraceStats(rays=float(n) + n_active.sum() + n_shadow.sum(),
-                       active=n_active, shadow=n_shadow, visits=visits,
-                       rr_lanes=rr_lanes)
-    return radiance, stats
+    return radiance, trace_stats(n, per_it, rr_lanes)
 
 
 def capture(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
@@ -218,7 +214,10 @@ def check_replay(rec: dict, radiance: V3, stats: TraceStats):
                 f"trace_paths' on {int((a != b).sum())} of {a.numel()} "
                 "lanes; it would time other phases than the real ones")
     for f in TraceStats._fields:
-        a, b = (torch.as_tensor(getattr(s, f)) for s in (rec["stats"], stats))
+        a, b = (getattr(s, f) for s in (rec["stats"], stats))
+        if a is None and b is None:
+            continue
+        a, b = (torch.as_tensor(x) for x in (a, b))
         if not torch.equal(a, b):
             raise RuntimeError(f"perf_phase: the replay's TraceStats.{f} "
                                f"differs from trace_paths': {a} != {b}")

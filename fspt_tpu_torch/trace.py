@@ -18,7 +18,14 @@ The spans, each where its work happens:
                       the device alone and show no span
   fspt.traverse       core/integrator.py intersect (and the heatmap's
                       launch, and Renderer.autofocus's walk): one a launch
+  fspt.tables         core/integrator.py trace_paths and
+                      trace_paths_batched: _packed_tables, the material
+                      and env tables built once a trace
   fspt.shade          core/integrator.py _bounce: _shade_and_scatter
+  fspt.atlas          _shade_and_scatter: the material maps' fetch
+  fspt.light          _shade_and_scatter, with light NEE: two a bounce,
+                      the light's pick, point and shadow segment before
+                      the traversal launch, its MIS-weighted add after
   fspt.uniforms       _bounce: the iteration's stream_uniforms
   fspt.sort           _sort_state
   fspt.compact        _compact

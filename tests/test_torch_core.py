@@ -170,7 +170,8 @@ def test_env_fallback_without_table(monkeypatch):
         shade = integrator._shade_and_scatter
         monkeypatch.setattr(
             integrator, "_shade_and_scatter",
-            lambda *a: shade(*a[:-1], a[-1]._replace(env6=None)))
+            lambda *a, **kw: shade(*a[:-1], a[-1]._replace(env6=None),
+                                   **kw))
         ours = integrator.trace_paths(arrays, cfg, scene.meta, o, d, key)
     _close(tuple(ours), tuple(ref))
 

@@ -7,11 +7,11 @@ Run from the root of a checkout, with no arguments:
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: name, `nvidia-smi` name and power limit, torch/CUDA versions;
-  2. build: nvcc builds the twelve sources of csrc/ (traverse4, walk,
-     walk1, walk5, dense_mt, micro, the first designs traverse4_v0, walk_v0,
-     walk5_v0, dense_mt_v0 and micro_v0 that only the [versus] and [shape]
-     lines launch, and walk_divide, a measurement build of walk that only
-     scripts/perf_walk_launches.py launches) concurrently into
+  2. build: nvcc builds the thirteen sources of csrc/ (traverse4, walk,
+     walk1, walk5, dense_mt, micro, pcg4d, the first designs traverse4_v0,
+     walk_v0, walk5_v0, dense_mt_v0 and micro_v0 that only the [versus] and
+     [shape] lines launch, and walk_divide, a measurement build of walk that
+     only scripts/perf_walk_launches.py launches) concurrently into
      fspt_tpu_torch/_build/; nvcc seconds and each kernel's registers and
      spills;
   3. scene: the bench scene (82k-triangle bunny stand-in) onto the card; how
@@ -50,6 +50,15 @@ Phases (one line each; any failure raises and exits non-zero):
      lines against that block (csrc/walk.cu `fspt_walk1_block`) and against
      the first design, and the [cluster_barrier] lines of
      scripts/cluster_barrier_bench.cu (the cycles a vote costs by route);
+ 6b. pcg4d (`phase_pcg4d`): csrc/pcg4d.cu through core/rng.py
+     `stream_uniforms` against its plain int64 chain
+     (`stream_uniforms_reference`) at the main path's shapes, bunny8's first
+     bounce (11 x 175,104, a device key row, the gid column of the state's
+     row gather), the merged phase (11 x 191,488, key_rows) and raygen
+     (4 x 262,144, a lane offset): bit-equal, one launch each; a [pcg4d]
+     line each with the kernel's device time (queued), the chain's eagerly
+     and as a CUDA graph replay (its device time, as a replayed sample step
+     ran it), and the store bound (the uniforms and ids over 3.35 TB/s);
   7. golden: 32x32 renders on the card against tests/goldens/bunny_class.npy
      under "split" and under the default "walk", and heatmap.npy
      (tests/test_goldens.py's 5% bound);
@@ -200,7 +209,8 @@ Phases (one line each; any failure raises and exits non-zero):
      launches a replayed step equal to `traversal_launches`; one capture;
      a [graph] line each with the capture's host time (the capture pass
      and the graph's instantiation), the eager first step, the step that
-     captured, and the median ms/sample eager and replayed.
+     captured, and the median ms/sample eager and replayed; pcg4d's launches
+     a replayed step equal to an eager step's.
 Then one JSON line with the kernels' numbers (each row with its bound from
 ops/traverse.py `traversal_bound`, computed from this run's visit counts and
 the valid children and real triangles those visits tested, and its launches
@@ -211,8 +221,8 @@ limit, and last the result line.  Images go to OUT_DIR (below).
 
     python3 chip_smoke.py --kernels-only
 
-stops after phase 6 (build, kernel checks, [shape] and [versus] lines) and
-prints no result line: a short call after a kernel edit.
+stops after phase 6b (build, kernel checks, [shape], [versus] and [pcg4d]
+lines) and prints no result line: a short call after a kernel edit.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -784,6 +794,78 @@ def phase_train(scene, smi):
     say("train_walk", size=f"{size}x{size}", loss=f"{wloss:.6f}",
         ms=f"{wms:.2f}", walk3_launches=wlaunches,
         expected_launches=wexpected, card=repr(smi))
+
+
+# ---- 6b: pcg4d -------------------------------------------------------------
+
+# (launch, rows, lanes, key form, stream): the main path's shapes
+PCG4D_SHAPES = (("bounce0", 11, 175_104, "row", 1),
+                ("merged", 11, 191_488, "key_rows", 6),
+                ("raygen", 4, 262_144, "offset", 0))
+
+
+def phase_pcg4d(smi):
+    """6b. pcg4d (see the module docstring).  Returns {launch: (kernel ms,
+    plain ms, bound ms, plain ms as a graph replay)}.  Raises on a
+    failure."""
+    import numpy as np
+    import torch
+    from fspt_tpu_torch.core import rng
+    from fspt_tpu_torch.ops.pcg4d import pcg4d_uniforms
+    from fspt_tpu_torch.ops.traverse import H100_BYTES_PER_S
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = np.random.default_rng(19)
+    key = rng.fold_in(rng.sample_key(rng.key(0), 0), 0)
+    row = torch.from_numpy(key.astype(np.int64)).to(dev)
+    out = {}
+    for label, rows, n, form, stream in PCG4D_SHAPES:
+        if form == "row":
+            # the gid column of _take's (W, 5) int row gather
+            block = torch.from_numpy(g.integers(0, 262_144, (n, 5))).to(
+                dev, torch.int32)
+            args, kw = (row, stream, (rows, n)), dict(lane_offset=block[:, 4])
+            ids_bytes = 4 * n
+        elif form == "key_rows":
+            gid = torch.from_numpy(g.integers(0, 8 * 262_144, n)).to(
+                dev, torch.int32)
+            table = rng.key_rows_tensor(rng.key_rows_for(key, 8), dev)
+            args = (row, stream, (rows, n))
+            kw = dict(lane_offset=gid, key_rows=table, lanes_per_key=262_144)
+            ids_bytes = 4 * n
+        else:
+            args, kw = (row, stream, (rows, n)), dict(device=dev)
+            ids_bytes = 0
+        before = pcg4d_uniforms.launches
+        got = rng.stream_uniforms(*args, **kw)
+        want = rng.stream_uniforms_reference(*args, **kw)
+        torch.cuda.synchronize()
+        if pcg4d_uniforms.launches != before + 1:
+            raise AssertionError(f"pcg4d {label}: "
+                                 f"{pcg4d_uniforms.launches - before} "
+                                 "launches, not 1")
+        if not torch.equal(got, want):
+            raise AssertionError(f"pcg4d {label}: the kernel's uniforms "
+                                 "differ from the plain chain's")
+        ms = cuda_ms(lambda: rng.stream_uniforms(*args, **kw), 50,
+                     queued=True)
+        plain = cuda_ms(lambda: rng.stream_uniforms_reference(*args, **kw),
+                        10)
+        # the chain as a replayed sample step ran it: its device time alone
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            rng.stream_uniforms_reference(*args, **kw)
+        plain_graph = cuda_ms(graph.replay, 20)
+        del graph
+        nbytes = 4 * rows * n + ids_bytes
+        bound = nbytes / H100_BYTES_PER_S * 1e3
+        out[label] = (ms, plain, bound, plain_graph)
+        say("pcg4d", launch=label, shape=f"{rows}x{n}", key=form,
+            bit_equal=True, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            plain_graph_ms=f"{plain_graph:.4f}", bound_ms=f"{bound:.5f}",
+            bound_by="bytes", bytes=nbytes,
+            pct_of_bound=f"{100 * bound / ms:.1f}",
+            speedup_over_graph=f"{plain_graph / ms:.1f}", card=repr(smi))
+    return out
 
 
 # ---- 17-19: refit and animate, view, profile ------------------------------
@@ -1719,6 +1801,7 @@ def phase_graph(scene, smi):
     from fspt_tpu_torch.__main__ import _config
     from fspt_tpu_torch.bench import bench_config
     from fspt_tpu_torch.core import integrator
+    from fspt_tpu_torch.ops.pcg4d import pcg4d_uniforms
     from fspt_tpu_torch.ops.traverse4 import packet_traverse4
     from fspt_tpu_torch.runtime.renderer import sample_step
 
@@ -1757,22 +1840,29 @@ def phase_graph(scene, smi):
                                  "from the eager one")
         ts = {"eager": [], "replay": []}
         launches = []
+        uniforms = {"eager": set(), "replay": set()}
         for i in range(GRAPH_STEPS):
             # in turns: eager, replay, replay, eager, ...
             for kind in (("eager", "replay") if i % 2 == 0
                          else ("replay", "eager")):
+                before = pcg4d_uniforms.launches
                 if kind == "eager":
                     ts[kind].append(eager(e))
                 else:
                     packet_traverse4.launches = 0
                     ts[kind].append(replayed(g))
                     launches.append(packet_traverse4.launches)
+                uniforms[kind].add(pcg4d_uniforms.launches - before)
         if not same(g, e):
             raise AssertionError(f"graph {case}: replayed steps differ from "
                                  "eager sample_step calls")
         if set(launches) != {want}:
             raise AssertionError(f"graph {case}: traverse4 launches a "
                                  f"replayed step {launches}, not {want}")
+        if len(uniforms["eager"]) != 1 or uniforms["replay"] != uniforms[
+                "eager"]:
+            raise AssertionError(f"graph {case}: pcg4d launches a step "
+                                 f"{uniforms}, replayed against eager")
         stats = g.stats
         if (stats["graph_captures"], stats["graph_replays"]) != (
                 1, GRAPH_STEPS + 1):
@@ -1791,7 +1881,8 @@ def phase_graph(scene, smi):
             speedup=f"{eager_ms / replay_ms:.2f}",
             eager_steps_ms=",".join(f"{t * 1e3:.1f}" for t in ts["eager"]),
             replay_steps_ms=",".join(f"{t * 1e3:.1f}" for t in ts["replay"]),
-            traverse4_launches_per_step=want, card=repr(smi))
+            traverse4_launches_per_step=want,
+            pcg4d_launches_per_step=min(uniforms["eager"]), card=repr(smi))
         del g, e
         torch.cuda.synchronize()
 
@@ -1829,6 +1920,7 @@ def main(kernels_only=False):
 
     # ---- 2. build -------------------------------------------------------
     from fspt_tpu_torch.ops import _build
+    from fspt_tpu_torch.ops.pcg4d import load_pcg4d, pcg4d_uniforms
     from fspt_tpu_torch.ops.traverse import load_walk1
     from fspt_tpu_torch.ops.traverse3 import load_walk
     from fspt_tpu_torch.ops.traverse4 import load_traverse4
@@ -1836,12 +1928,12 @@ def main(kernels_only=False):
     from fspt_tpu_torch.scripts.perf_r5d import load_micro
     from fspt_tpu_torch.scripts.traverse5_proto import load_walk5
     sources = ("traverse4", "walk", "walk1", "walk5", "dense_mt", "micro",
-               "traverse4_v0", "walk_v0", "walk5_v0", "dense_mt_v0",
+               "pcg4d", "traverse4_v0", "walk_v0", "walk5_v0", "dense_mt_v0",
                "micro_v0", "walk_divide")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for load in (load_traverse4, load_walk, load_walk1, load_walk5,
-                 load_dense_mt, load_micro):
+                 load_dense_mt, load_micro, load_pcg4d):
         load()
     wall = time.perf_counter() - t0
     for name in sources:
@@ -2042,6 +2134,9 @@ def main(kernels_only=False):
             f"walk1 {label} block -> cluster", block, new, 5)
         shape_walk1(f"walk1 {label}", hit, counts, bound, ms,
                     earlier[("walk1", label)], mhz)
+
+    # ---- 6b. pcg4d ---------------------------------------------------------
+    pcg4d_times = phase_pcg4d(smi)
     if kernels_only:
         return
 
@@ -2066,7 +2161,9 @@ def main(kernels_only=False):
 
     # ---- 8. bench ("split") ---------------------------------------------
     r.step()                                      # warm-up
+    pcg4d_before = pcg4d_uniforms.launches
     steps = bench.time_steps(r, BENCH_STEPS)
+    pcg4d_per_step = (pcg4d_uniforms.launches - pcg4d_before) / len(steps)
     line = bench.summarize(r, steps, smi)         # raises on a wrong count
     launches = sum(s["launches"] for s in steps)
     samples = sum(s["samples"] for s in steps)
@@ -2080,7 +2177,7 @@ def main(kernels_only=False):
         honest_rays=f"{rays:.0f}", rays_per_s=f"{line['value']:.0f}",
         kernel_launches=launches,
         expected_launches=len(steps) * line["traverse4_launches_per_step"],
-        card=repr(smi))
+        pcg4d_launches_per_step=pcg4d_per_step, card=repr(smi))
     print("[bench_json] " + json.dumps(line), flush=True)
     hdr = check_image(r, "bench", size)
     png = os.path.join(OUT_DIR, "chip_smoke_bench.png")
@@ -2462,7 +2559,19 @@ def main(kernels_only=False):
          "leaf4_plain_ms": rows[("micro", "leaf4")][1],
          "leaf4_bound_ms": bounds[("micro", "leaf4")]["bound_ms"],
          "leaf4_bound_by": bounds[("micro", "leaf4")]["bound_by"],
-         "leaf4_earlier_ms": earlier[("micro", "leaf4")]}]}), flush=True)
+         "leaf4_earlier_ms": earlier[("micro", "leaf4")]},
+        # no Pallas kernel: fspt_tpu/core/rng.py's PCG4D is jnp code
+        {"name": "pcg4d", "route": "cuda",
+         "source": "fspt_tpu_torch/csrc/pcg4d.cu", "replaces": None,
+         "launches_per_step": pcg4d_per_step, "launch": "bounce0",
+         "ms": pcg4d_times["bounce0"][0],
+         "plain_ms": pcg4d_times["bounce0"][1],
+         "bound_ms": pcg4d_times["bounce0"][2], "bound_by": "bytes",
+         "library_ms": None, "earlier_ms": None,
+         **{f"{k}_{f}": pcg4d_times[k][i] for k in ("merged", "raygen")
+            for i, f in enumerate(("ms", "plain_ms", "bound_ms"))},
+         "plain_graph_ms": pcg4d_times["bounce0"][3]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,8 @@ The same progressive Monte-Carlo path tracer as fspt_tpu (which stays the
 JAX reference): the host scene compiler is a jax-free copy, the device code
 is PyTorch, and BVH traversal is hand-written CUDA: csrc/traverse4.cu behind
 ops/traverse4.py ("split"), csrc/walk.cu behind ops/traverse3.py ("walk",
-the heatmap) and csrc/walk1.cu behind ops/traverse.py ("packet").  Nothing here
+the heatmap) and csrc/walk1.cu behind ops/traverse.py ("packet"); so is the
+integrator's PCG4D, csrc/pcg4d.cu behind ops/pcg4d.py.  Nothing here
 imports JAX.  `python -m fspt_tpu_torch` is the command line.
 
 Public API:

@@ -13,15 +13,22 @@ values per sample step; only PCG4D runs on the device.  A sample step
 replayed from a CUDA graph (runtime/renderer.py) reads the same key data
 from a device table that the host rewrites before each replay.
 
-torch has no complete uint32 arithmetic, so PCG4D runs in int64 holding
-values in [0, 2^32): every product and sum is masked back to 32 bits, and a
-32x32-bit product is split into 16-bit halves so it never leaves int64.
+On a CUDA device PCG4D is one launch of a hand-written kernel on native u32
+(csrc/pcg4d.cu behind ops/pcg4d.py `pcg4d_uniforms`).  On the CPU it runs
+as plain PyTorch (`stream_uniforms_reference`), which is also the kernel's
+oracle: torch has no complete uint32 arithmetic, so there PCG4D runs in
+int64 holding values in [0, 2^32), every product and sum masked back to 32
+bits and a 32x32-bit product split into 16-bit halves so it never leaves
+int64.  The u32 registers wrap where the masks cut, so the two agree bit
+for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fspt_tpu_torch.ops.pcg4d import pcg4d_uniforms
 
 _M32 = 0xFFFFFFFF
 
@@ -70,7 +77,7 @@ def key_rows_for(batch_key, k: int) -> np.ndarray:
     return np.stack([fold_in(batch_key, i) for i in range(k)])
 
 
-# ---- PCG4D on the device ---------------------------------------------------
+# ---- PCG4D on the device: plain int64 version -----------------------------
 
 def _mul32(a, b):
     """(a * b) mod 2^32 for int64 tensors holding u32 values."""
@@ -115,7 +122,25 @@ def stream_uniforms(key, stream: int, shape, lane_offset=0, key_rows=None,
     batching): lane id g hashes as (key_rows[g // lanes_per_key], stream,
     row, g % lanes_per_key); `key` is ignored then.  key_rows is a (K, 2)
     int64 tensor on the lanes' device (see `key_rows_tensor`).
+
+    CPU lanes take the plain version (`stream_uniforms_reference`); CUDA
+    lanes one launch of the kernel (ops/pcg4d.py), the same numbers bit for
+    bit.
     """
+    lanes = (lane_offset.device if torch.is_tensor(lane_offset)
+             else torch.device(device if device is not None else "cpu"))
+    draw = (pcg4d_uniforms if lanes.type == "cuda"
+            else stream_uniforms_reference)
+    return draw(key, stream, shape, lane_offset=lane_offset,
+                key_rows=key_rows, lanes_per_key=lanes_per_key,
+                device=device)
+
+
+def stream_uniforms_reference(key, stream: int, shape, lane_offset=0,
+                              key_rows=None, lanes_per_key: int = 0,
+                              device=None):
+    """`stream_uniforms` as a chain of int64 PyTorch ops, on any device:
+    the CPU path and the CUDA kernel's oracle."""
     rows, n = shape
     if torch.is_tensor(lane_offset):
         ids = lane_offset.to(torch.int64) & _M32

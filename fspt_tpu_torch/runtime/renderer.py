@@ -42,6 +42,7 @@ from fspt_tpu_torch.core.integrator import (check_config, trace_heatmap,
                                             trace_paths, trace_paths_batched)
 from fspt_tpu_torch.core.tonemap import postprocess
 from fspt_tpu_torch.core.traversal import intersect_scene
+from fspt_tpu_torch.ops.pcg4d import pcg4d_uniforms
 from fspt_tpu_torch.ops.traverse import check_stack_overflow, packet_traverse
 from fspt_tpu_torch.ops.traverse3 import packet_traverse3
 from fspt_tpu_torch.ops.traverse4 import packet_traverse4
@@ -185,8 +186,9 @@ def refresh_inputs(static: list, seen: list, leaves: list) -> bool:
     return True
 
 
-# the traversal launch counters a replay advances as the captured step did
-_COUNTERS = (packet_traverse4, packet_traverse3, packet_traverse)
+# the launch counters a replay advances as the captured step did
+_COUNTERS = (packet_traverse4, packet_traverse3, packet_traverse,
+             pcg4d_uniforms)
 
 
 class StepGraph:

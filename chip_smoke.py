@@ -7,11 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: name, `nvidia-smi` name and power limit, torch/CUDA versions;
-  2. build: nvcc builds the thirteen sources of csrc/ (traverse4, walk,
-     walk1, walk5, dense_mt, micro, pcg4d, the first designs traverse4_v0,
-     walk_v0, walk5_v0, dense_mt_v0 and micro_v0 that only the [versus] and
-     [shape] lines launch, and walk_divide, a measurement build of walk that
-     only scripts/perf_walk_launches.py launches) concurrently into
+  2. build: nvcc builds the seven sources of csrc/ (traverse4, walk,
+     walk1, walk5, dense_mt, micro, pcg4d) concurrently into
      fspt_tpu_torch/_build/; nvcc seconds and each kernel's registers and
      spills;
   3. scene: the bench scene (82k-triangle bunny stand-in) onto the card; how
@@ -24,9 +21,7 @@ Phases (one line each; any failure raises and exits non-zero):
      [shape] line per launch (the per-ray visits' sum, mean, p50/p99/max,
      node/leaf split, the valid children and real triangles a visit tested,
      dead and root-only shares, the lockstep loss of 32
-     and of 4 rays a warp, the launch's bound) and a [versus] line (the
-     first design and the current kernel timed in turns: old, new, new,
-     old);
+     and of 4 rays a warp, the launch's bound);
   5. width 16: the bench scene packed 16-wide; traverse4 and walk3 on the
      primary rays, each bit-equal to its plain version and finding the
      8-wide tables' slots;
@@ -39,17 +34,10 @@ Phases (one line each; any failure raises and exits non-zero):
      bit-equal on the primary rays; times of both; for walk3 a [shape]
      line per launch (per-group visits with p50/p99/max, node/leaf split,
      the bound, where the launch order's last block ends in visits against
-     an even share over 5 blocks an SM, and the kernel's time with the
-     blocks an SM holds cut to 4 and to 1 by padding shared memory: a time
-     that hardly moves means the per-visit latency chain bounds it, one
-     that scales means instruction throughput) and a [versus] line; for
-     walk1 a [shape] line per launch (per-packet visits with p50/p99/max,
-     where the launch order's last packet ends against an even share over
-     one block an SM, the cycles a visit of the 1,024-thread block that
-     walk1 was and of the cluster), [versus]
-     lines against that block (csrc/walk.cu `fspt_walk1_block`) and against
-     the first design, and the [cluster_barrier] lines of
-     scripts/cluster_barrier_bench.cu (the cycles a vote costs by route);
+     an even share over 5 blocks an SM); for walk1 a [shape] line per
+     launch (per-packet visits with p50/p99/max, where the launch order's
+     last packet ends against an even share over one block an SM, the
+     bound, and the cycles a visit of the longest packet);
  6b. pcg4d (`phase_pcg4d`): csrc/pcg4d.cu through core/rng.py
      `stream_uniforms` against its plain int64 chain
      (`stream_uniforms_reference`) at the main path's shapes, bunny8's first
@@ -83,27 +71,22 @@ Phases (one line each; any failure raises and exits non-zero):
      block cluster) at its defaults against its plain version — nearest,
      any-hit and clipped runs bit-equal, per-walk visits included — and its
      slots against traverse4's on the same launch (equal up to coplanar
-     ties); a [shape] line (substeps a program and per-walk visits with
-     p50/p99/max, the longest walk of a program against its mean, bursts and
-     drain bursts, the clusters the card holds at once, cycles a substep and
-     where the walk's warp 0 spends them, from the kernel's own count in its
-     measuring entry point) and a [versus] line against
-     the first design (csrc/walk5_v0.cu); then the v4/v5 sweep of
-     perf_r5i.main(), walk5's launch count read around it;
+     ties); a [shape] line (per-walk visits with p50/p99/max, node/leaf
+     split, the longest walk of a program against its mean, the bound);
+     then the v4/v5 sweep of perf_r5i.main(), walk5's launch count read
+     around it;
  14. dense MT: csrc/dense_mt.cu against its plain version, bit-equal, on
      stand-in tiles and on 64 tiles of captured rays, T = 64 and 128; then
      the two-level study perf_r5_treelet.main(), its launch count read, and
-     a [versus] line against the first design (csrc/dense_mt_v0.cu) at
-     stage E (T=64, the study's tile count), both timed on the device alone
-     (the launches wait behind a sleep kernel: one is shorter than its
-     wrapper's host time, which `wrapper_ms` shows);
+     the kernel at stage E (T=64, the study's tile count) timed on the
+     device alone (the launches wait behind a sleep kernel: one is shorter
+     than its wrapper's host time, which `wrapper_ms` shows);
  15. micro: csrc/micro.cu against its plain version at k=64 for all eight
      variants, bit-equal, `leaf` and `leaf2` also at k=512, and `full` and
      `leaf4` at K=4096, the shape perf_r5d.main() launches, once each (the
      plain version at K=4096 costs ~45 s for `full` and ~120 s for `leaf4`,
-     so the other variants do not take it: at K=4096 they are held bit for
-     bit to the first design, csrc/micro_v0.cu, in the [versus] lines, which
-     time the two in turns); then perf_r5d.main() at K=4096 (ns/substep),
+     so the other variants do not take it); then perf_r5d.main() at K=4096
+     (ns/substep),
      its launch count read (a count of calls: a call of the leaf family is
      three kernel launches);
  16. train: the differentiable path (parallel/dist.py make_train_step) on
@@ -221,8 +204,8 @@ limit, and last the result line.  Images go to OUT_DIR (below).
 
     python3 chip_smoke.py --kernels-only
 
-stops after phase 6b (build, kernel checks, [shape], [versus] and [pcg4d]
-lines) and prints no result line: a short call after a kernel edit.
+stops after phase 6b (build, kernel checks, [shape] and [pcg4d] lines) and
+prints no result line: a short call after a kernel edit.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -307,24 +290,6 @@ def compare(name, hit, ref, fields=("t", "slot", "u", "v", "visits")):
                for f in ("t", "u", "v"))
 
 
-def versus(label, old, new, reps=20, queued=False):
-    """The first design against the current kernel on one launch, timed in
-    turns (old, new, new, old); returns (old ms, new ms)."""
-    t = [cuda_ms(f, reps, queued=queued) for f in (old, new, new, old)]
-    old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    say("versus", launch=label, old_ms=f"{old_ms:.4f}",
-        new_ms=f"{new_ms:.4f}", speedup=f"{old_ms / new_ms:.2f}",
-        turns=",".join(f"{x:.4f}" for x in t))
-    return old_ms, new_ms
-
-
-def same_hits(label, a, b):
-    import torch
-    for f in a._fields:
-        if not torch.equal(getattr(a, f), getattr(b, f)):
-            raise AssertionError(f"{label}: the two designs differ in {f}")
-
-
 def lockstep_loss(visits, width):
     """Sum over consecutive `width`-ray sets of width x the set's longest
     walk, over the sum of all walks: the factor by which lanes that wait
@@ -392,19 +357,11 @@ def inorder_makespan(visits, slots):
     return max(ends), sum(v) / slots
 
 
-# dynamic shared memory that leaves room for 4 blocks and for 1 block on an
-# SM (227 KiB), beside each source's static 16 KiB (walk) or 3 KiB (walk_v0)
-WALK_PADS = {"walk": (("full", 0), ("4", 40 * 1024), ("1", 120 * 1024)),
-             "walk_v0": (("full", 0), ("4", 50 * 1024), ("1", 120 * 1024))}
-
-
-def shape_walk3(label, hit, counts, bound, ms, args, kw, group=128):
-    """The per-group visits of a walk3 launch, its bound, how far the launch
-    order's longest groups stretch it (a launch ends when its last group
-    does), and its time with the blocks an SM can hold cut by padding shared
-    memory."""
+def shape_walk3(label, hit, counts, bound, ms, group=128):
+    """The per-group visits of a walk3 launch, its bound, and how far the
+    launch order's longest groups stretch it (a launch ends when its last
+    group does)."""
     import torch
-    from fspt_tpu_torch.ops._versus import walk_launcher
     g = hit.visits[::group]
     if counts["node"] + counts["leaf"] != int(g.sum()) * group:
         raise AssertionError(f"{label}: node + leaf visits differ from "
@@ -412,11 +369,6 @@ def shape_walk3(label, hit, counts, bound, ms, args, kw, group=128):
     q = torch.quantile(g.float(), torch.tensor([0.5, 0.99], device=g.device))
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
     last, even = inorder_makespan(g.cpu(), sms * 5)
-    times = {}
-    for source, pads in WALK_PADS.items():
-        for blocks, pad in pads:
-            fn = walk_launcher(source, args, kw, pad_bytes=pad)
-            times[f"{source}_ms_blocks_{blocks}"] = f"{cuda_ms(fn, 5):.4f}"
     say("shape", launch=label, lanes=hit.visits.numel(), groups=g.numel(),
         group_visits=int(g.sum()), mean=f"{g.float().mean().item():.2f}",
         p50=f"{q[0].item():.0f}", p99=f"{q[1].item():.0f}", max=int(g.max()),
@@ -424,15 +376,14 @@ def shape_walk3(label, hit, counts, bound, ms, args, kw, group=128):
         node_group_visits=counts["node"] // group,
         leaf_group_visits=counts["leaf"] // group, **tested(counts),
         **bound_fields(bound),
-        share_of_bound=f"{bound['bound_ms'] / ms:.4f}", **times)
+        share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
 
 
-def shape_walk1(label, hit, counts, bound, ms, block_ms, mhz):
+def shape_walk1(label, hit, counts, bound, ms, mhz):
     """The per-packet visits of a walk1 launch, its bound, how far the launch
     order's longest packets stretch it, and the cycles a visit costs the
-    1,024-thread block that walk1 was (one block an SM: its time over the
-    visits of the SM that ends last) and the cluster (its time over the
-    longest packet's visits: every packet is resident at once)."""
+    cluster (its time over the longest packet's visits: every packet is
+    resident at once)."""
     import torch
     from fspt_tpu_torch.ops.traverse import PACKET
     g = hit.visits[::PACKET]
@@ -448,37 +399,19 @@ def shape_walk1(label, hit, counts, bound, ms, block_ms, mhz):
         last_block_ends_at_visits=last, even_share_visits=f"{even:.0f}",
         node_packet_visits=counts["node"] // PACKET,
         leaf_packet_visits=counts["leaf"] // PACKET, **tested(counts),
-        block_cycles_per_visit=f"{block_ms * 1e-3 * mhz * 1e6 / last:.0f}",
         cluster_cycles_per_visit=f"{ms * 1e-3 * mhz * 1e6 / int(g.max()):.0f}",
         sm_mhz=mhz, **bound_fields(bound),
         share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
 
 
-def shape_walk5(label, hit, counts, bound, ms, args, kw, mhz):
-    """The schedule of a walk5 launch, from the kernel's own count
-    (ops/_versus.py, `fspt_walk5_stats`, whose hits must equal the
-    launch's): substeps a program, per-walk visits and each program's
-    longest walk against its mean, bursts and drain bursts, the clusters the
-    card holds at once and the blocks an SM, the cycles a substep (a
-    program's cycles over its substeps: the vote and the walks' waits
-    included) and where a substep's cycles go in the walk's warp 0 (each
-    phase's share, summed over the walks' substeps that had work)."""
+def shape_walk5(label, hit, counts, bound, ms):
+    """The per-walk visits of a walk5 launch, each program's longest walk
+    against its mean (a program's walks meet at every burst vote), and its
+    bound."""
     import torch
-    from fspt_tpu_torch.ops._versus import (WALK5_PHASES, WALK5_STATS,
-                                            walk5_launcher, walk5_occupancy)
     from fspt_tpu_torch.scripts.traverse5_proto import (LANES, WALKS,
                                                         walk5_geometry)
     g = walk5_geometry(hit.visits.numel())
-    stats = torch.zeros((g["blocks"], len(WALK5_STATS)), dtype=torch.int32,
-                        device=hit.t.device)
-    same_hits(f"{label} stats", walk5_launcher("walk5", args, kw, stats)(),
-              hit)
-    s = dict(zip(WALK5_STATS, stats[::WALKS].T.double()))
-    busy = stats.double().sum(0)
-    worked = busy[WALK5_STATS.index("worked")].item()
-    phases = {f"{k}_cycles_per_worked_substep":
-              f"{busy[WALK5_STATS.index(k)].item() / worked:.0f}"
-              for k in WALK5_PHASES}
     walks = hit.visits[::LANES]
     # a program's walks (the pad walks of the last one left out)
     per = torch.cat([walks, walks.new_zeros(g["pad_blocks"])]).reshape(
@@ -486,31 +419,17 @@ def shape_walk5(label, hit, counts, bound, ms, args, kw, mhz):
     real = torch.cat([torch.ones_like(walks), walks.new_zeros(
         g["pad_blocks"])]).reshape(-1, WALKS).double()
     longest = per.max(1).values / (per.sum(1) / real.sum(1))
-    q = lambda x: [f"{v:.0f}" for v in torch.quantile(
-        x.double(), torch.tensor([0.5, 0.99], dtype=torch.float64,
-                                 device=x.device)).tolist()] + [
-        f"{x.max().item():.0f}"]
-    cps = s["cycles"] / s["substeps"]
-    clusters, per_sm = walk5_occupancy(kw)
+    q = [f"{v:.0f}" for v in torch.quantile(
+        walks.double(), torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                     device=walks.device)).tolist()]
     say("shape", launch=label, lanes=hit.visits.numel(),
         programs=g["programs"], walks=walks.numel(),
-        substeps_p50_p99_max=",".join(q(s["substeps"])),
-        walk_visits_p50_p99_max=",".join(q(walks)),
+        walk_visits_p50_p99_max=",".join(q + [f"{walks.max().item():.0f}"]),
         walk_visits_mean=f"{walks.double().mean().item():.2f}",
         node_walk_visits=counts["node"] // LANES,
         leaf_walk_visits=counts["leaf"] // LANES, **tested(counts),
         longest_walk_over_mean=f"{longest.mean().item():.3f}",
-        bursts_mean=f"{s['bursts'].mean().item():.2f}",
-        bursts_max=int(s["bursts"].max()),
-        drain_bursts=int(s["drain_bursts"].sum()),
-        idle_drain_bursts=int(s["idle_drain_bursts"].sum()),
-        active_clusters=clusters, blocks_per_sm=per_sm,
-        cycles_per_substep_p50=f"{cps.median().item():.0f}",
-        worked_substeps_per_walk=f"{worked / g['blocks']:.2f}", **phases,
-        launch_cycles_per_longest_program_substep=(
-            f"{ms * 1e-3 * mhz * 1e6 / s['substeps'].max().item():.0f}"),
-        sm_mhz=mhz, **bound_fields(bound),
-        share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
+        **bound_fields(bound), share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
 
 
 def ptxas_summary(log):
@@ -521,26 +440,22 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            walk = re.search(r"walk_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
-                             name)
+            walk = re.search(r"walk_kernelILi(\d+)ELb(\d)ELb(\d)E", name)
             w4 = re.search(r"walk4_kernelILi(\d+)ELb(\d)E", name)
-            w5 = re.search(r"walk5_kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?",
-                           name)
+            w5 = re.search(r"walk5_kernelILi(\d+)ELb(\d)E", name)
             one = re.search(r"(dense_mt|micro)_kernelILi(\d+)E", name)
             w1 = re.search(r"walk1_kernelILb(\d)E", name)
             part = re.search(r"\d+(chain|leaf|fetch|leaf_begin|leaf_end)"
                              r"_kernel(?:ILi(\d+)E)?", name)
             if walk:
-                g, tw, a, lc, v1 = walk.groups()
-                entry = {"kernel": f"walk<group={g},width={tw},any={a},"
-                                   f"lanes={lc},v1={v1}>"}
+                tw, a, lc = walk.groups()
+                entry = {"kernel": f"walk<width={tw},any={a},lanes={lc}>"}
             elif w4:
                 entry = {"kernel": f"walk4<width={w4.group(1)},"
                                    f"any={w4.group(2)}>"}
             elif w5:
                 entry = {"kernel": f"walk5<width={w5.group(1)},"
-                                   f"any={w5.group(2)}"
-                                   f"{',stats=' + w5.group(3) if w5.group(3) else ''}>"}
+                                   f"any={w5.group(2)}>"}
             elif w1:
                 entry = {"kernel": f"walk1<any={w1.group(1)}>"}
             elif one:
@@ -1928,8 +1843,7 @@ def main(kernels_only=False):
     from fspt_tpu_torch.scripts.perf_r5d import load_micro
     from fspt_tpu_torch.scripts.traverse5_proto import load_walk5
     sources = ("traverse4", "walk", "walk1", "walk5", "dense_mt", "micro",
-               "pcg4d", "traverse4_v0", "walk_v0", "walk5_v0", "dense_mt_v0",
-               "micro_v0", "walk_divide")
+               "pcg4d")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for load in (load_traverse4, load_walk, load_walk1, load_walk5,
@@ -1959,12 +1873,6 @@ def main(kernels_only=False):
                                               packet_traverse3_reference)
     from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
                                               packet_traverse4_reference)
-    from fspt_tpu_torch.ops._versus import (DENSE_MT_SOURCES,
-                                            TRAVERSE4_SOURCES, WALK1_DESIGNS,
-                                            WALK5_SOURCES, WALK_SOURCES,
-                                            dense_mt_launcher, micro_launcher,
-                                            traverse4_launcher, walk5_launcher,
-                                            walk_launcher)
     from fspt_tpu_torch.testing import (icosphere_obj,
                                         make_bunny_standin_scene,
                                         make_test_scene)
@@ -2005,7 +1913,7 @@ def main(kernels_only=False):
 
     table_rows = a.pk_nodes.shape[0] + a.pk_leaves.shape[0]
 
-    rows, bounds, earlier = {}, {}, {}
+    rows, bounds = {}, {}
     max_err = {"traverse4": 0.0, "walk3": 0.0, "walk1": 0.0}
     for label, (args, kw) in (("primary", captured[0]),
                               ("bounce0", captured[1])):
@@ -2021,11 +1929,6 @@ def main(kernels_only=False):
                              kw["leaf_size"], table_rows)
         bounds[("traverse4", label)] = bound
         shape_traverse4(f"traverse4 {label}", hit, args[4], counts, bound, ms)
-        old, new = (traverse4_launcher(src, args, kw)
-                    for src in TRAVERSE4_SOURCES)
-        same_hits(f"traverse4 {label}", old(), new())
-        earlier[("traverse4", label)], _ = versus(f"traverse4 {label}", old,
-                                                  new)
 
     # brute force over all triangles on a 4,096-ray subset: 2,048 primary
     # rays and 2,048 live (tmax > 0) rays of the bounce-0 launch
@@ -2095,10 +1998,7 @@ def main(kernels_only=False):
                              kw["leaf_size"], table_rows,
                              group=traverse3.GROUP)
         bounds[("walk3", label)] = bound
-        old, new = (walk_launcher(src, args, kw) for src in WALK_SOURCES)
-        same_hits(f"walk3 {label}", old(), new())
-        shape_walk3(f"walk3 {label}", hit, counts, bound, ms, args, kw)
-        earlier[("walk3", label)], _ = versus(f"walk3 {label}", old, new)
+        shape_walk3(f"walk3 {label}", hit, counts, bound, ms)
     # walk1: the primary rays and the bounce-0 launch of a "packet" step
     pcfg = RenderConfig(width=size, height=size, bounces=8,
                         extra_refraction_iters=0, batch_spp=1,
@@ -2109,8 +2009,6 @@ def main(kernels_only=False):
             lambda: integrator.trace_paths(a, pcfg, meta, o, d, k0))
     torch.cuda.synchronize()
     check_stack_overflow(dev)
-    from fspt_tpu_torch.scripts.perf_walk_launches import run_bench
-    run_bench("cluster_barrier_bench")           # [cluster_barrier] lines
     pkt_kw = dict(leaf_size=meta.leaf_size,
                   stack_depth=max(cfg.stack_depth, meta.pk_stack_depth))
     for label, (args, kw) in (
@@ -2125,15 +2023,7 @@ def main(kernels_only=False):
         bound = launch_bound(counts, hit.t.numel(), 8, kw["leaf_size"],
                              table_rows, group=1024)
         bounds[("walk1", label)] = bound
-        first, block, new = (walk_launcher(src, args, kw, fn)
-                             for src, fn in WALK1_DESIGNS)
-        same_hits(f"walk1 {label} first design", first(), new())
-        same_hits(f"walk1 {label} block", block(), new())
-        versus(f"walk1 {label} first design -> cluster", first, new, 5)
-        earlier[("walk1", label)], _ = versus(
-            f"walk1 {label} block -> cluster", block, new, 5)
-        shape_walk1(f"walk1 {label}", hit, counts, bound, ms,
-                    earlier[("walk1", label)], mhz)
+        shape_walk1(f"walk1 {label}", hit, counts, bound, ms, mhz)
 
     # ---- 6b. pcg4d ---------------------------------------------------------
     pcg4d_times = phase_pcg4d(smi)
@@ -2294,10 +2184,7 @@ def main(kernels_only=False):
     bounds[("walk5", "bounce0")] = launch_bound(
         counts, so.x.shape[0], 8, meta.leaf_size, table_rows, group=128)
     shape_walk5("walk5 bounce0", hit5, counts, bounds[("walk5", "bounce0")],
-                ms, launch, v5_kw, mhz)
-    old, new = (walk5_launcher(src, launch, v5_kw) for src in WALK5_SOURCES)
-    same_hits("walk5 bounce0", old(), new())
-    earlier[("walk5", "bounce0")], _ = versus("walk5 bounce0", old, new, 10)
+                ms)
     hit4 = packet_traverse4(*launch, **v5_kw)
     same = hit5.slot == hit4.slot
     tie = torch.isclose(hit5.t, hit4.t, rtol=1e-5, atol=1e-6)
@@ -2370,13 +2257,6 @@ def main(kernels_only=False):
     plain_ms = cuda_ms(lambda: perf_r5_treelet.dense_mt_reference(
         tl, leaves, rays, 64), 1)
     rows[("dense_mt", "stage_e")] = (ms, plain_ms)
-    old, new = (dense_mt_launcher(src, tl, leaves, rays, 64)
-                for src in DENSE_MT_SOURCES)
-    for a_, b_ in zip(old(), new()):
-        if not torch.equal(a_, b_):
-            raise AssertionError("dense_mt stage E: the two designs differ")
-    earlier[("dense_mt", "stage_e")], _ = versus(
-        f"dense_mt stage_e T=64 tiles={n_tiles}", old, new, queued=True)
     # a tile's 1,024 lanes each test the real triangles of the treelet's 64
     # slots (8 leaf rows)
     tile_rows = leaves[tl.long() * 8 + torch.arange(8, device=dev)]
@@ -2456,14 +2336,6 @@ def main(kernels_only=False):
             **bound_fields(bounds[("micro", v)]), ms=f"{ms:.4f}",
             share_of_bound=f"{bounds[('micro', v)]['bound_ms'] / ms:.4f}",
             cycles_per_substep=f"{ms * 1e-3 * mhz * 1e6 / perf_r5d.K:.0f}")
-    for v in perf_r5d.VARIANTS:
-        old, new = (micro_launcher(src, table, mrays, v, perf_r5d.K)
-                    for src in ("micro_v0", "micro"))
-        ko, kn = old(), new()
-        if not bool(((ko == kn) | (ko.isnan() & kn.isnan())).all()):
-            raise AssertionError(f"micro {v}: the two designs differ")
-        earlier[("micro", v)], _ = versus(f"micro {v} K={perf_r5d.K}", old,
-                                          new, 3)
     perf_r5d.micro.launches = 0
     ns = perf_r5d.main(scene)
     micro_launches = perf_r5d.micro.launches
@@ -2515,11 +2387,9 @@ def main(kernels_only=False):
                 "max_abs_err": max_err[name], "launch": launch, "ms": ms,
                 "plain_ms": plain, "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "library_ms": None,
-                "earlier_ms": earlier[(name, launch)], "primary_ms": pms,
-                "primary_plain_ms": pplain,
+                "primary_ms": pms, "primary_plain_ms": pplain,
                 "primary_bound_ms": pb["bound_ms"],
-                "primary_bound_by": pb["bound_by"],
-                "primary_earlier_ms": earlier[(name, "primary")]}
+                "primary_bound_by": pb["bound_by"]}
 
     def study_row(name, launch, source, replaces, launches):
         ms, plain = rows[(name, launch)]
@@ -2529,8 +2399,7 @@ def main(kernels_only=False):
                 "launches_per_step": launches,
                 "max_abs_err": max_err.get(name, 0.0), "launch": launch,
                 "ms": ms, "plain_ms": plain, "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "library_ms": None,
-                "earlier_ms": earlier[(name, launch)]}
+                "bound_by": b["bound_by"], "library_ms": None}
 
     per_step = lambda c: integrator.traversal_launches(c, n, c.batch_spp)
     print(smi, flush=True)
@@ -2558,8 +2427,7 @@ def main(kernels_only=False):
          "leaf4_ms": rows[("micro", "leaf4")][0],
          "leaf4_plain_ms": rows[("micro", "leaf4")][1],
          "leaf4_bound_ms": bounds[("micro", "leaf4")]["bound_ms"],
-         "leaf4_bound_by": bounds[("micro", "leaf4")]["bound_by"],
-         "leaf4_earlier_ms": earlier[("micro", "leaf4")]},
+         "leaf4_bound_by": bounds[("micro", "leaf4")]["bound_by"]},
         # no Pallas kernel: fspt_tpu/core/rng.py's PCG4D is jnp code
         {"name": "pcg4d", "route": "cuda",
          "source": "fspt_tpu_torch/csrc/pcg4d.cu", "replaces": None,
@@ -2567,7 +2435,7 @@ def main(kernels_only=False):
          "ms": pcg4d_times["bounce0"][0],
          "plain_ms": pcg4d_times["bounce0"][1],
          "bound_ms": pcg4d_times["bounce0"][2], "bound_by": "bytes",
-         "library_ms": None, "earlier_ms": None,
+         "library_ms": None,
          **{f"{k}_{f}": pcg4d_times[k][i] for k in ("merged", "raygen")
             for i, f in enumerate(("ms", "plain_ms", "bound_ms"))},
          "plain_graph_ms": pcg4d_times["bounce0"][3]}]}),

@@ -21,10 +21,11 @@
 // What bounds it on an H100, and what the design does about it.  Float
 // operations: T triangle tests of ~55 operations a pair against T/8 rows (4
 // or 8 KB) that every pair of the tile reads; each tile reads its 28 KB of
-// rays once and writes 8 KB.  The first design (csrc/dense_mt_v0.cu) ran a
-// tile as one 1,024-thread block: the stage's 183 tiles were 1.39 blocks an
-// SM, so part of the card ran a second block while the rest idled, and every
-// pair tested all T slots with the IEEE reciprocal alone.  Here:
+// rays once and writes 8 KB.  The first design (PR 3; its times are in
+// PERF.md §6) ran a tile as one 1,024-thread block: the stage's 183 tiles
+// were 1.39 blocks an SM, so part of the card ran a second block while the
+// rest idled, and every pair tested all T slots with the IEEE reciprocal
+// alone.  Here:
 //   * a tile is kSplit blocks of kThreads, so that the launch is many small
 //     blocks that spread evenly over the 132 SMs;
 //   * each block stages the treelet's rows into shared memory as 16-byte
@@ -35,11 +36,11 @@
 //     bit-equal), the same for every thread of the block, two triangles at a
 //     time so that their reciprocals run side by side.
 // On an NVIDIA H100 80GB HBM3 at 700 W, stage E at T = 64 (183 tiles;
-// chip_smoke.py's [versus] line, launches queued behind a sleep kernel so
-// that the device time alone is read): 0.051 -> 0.029 ms against the first
-// design, ~25% of the bound: near the issue rate of its instructions, ~70 a
-// triangle test without fused multiply-adds, loads included, against the 55
-// operations the bound counts.
+// PR 6, launches queued behind a sleep kernel so that the device time alone
+// is read): 0.051 -> 0.029 ms against the first design, ~25% of the bound:
+// near the issue rate of its instructions, ~70 a triangle test without fused
+// multiply-adds, loads included, against the 55 operations the bound
+// counts.
 
 #include <cuda_runtime.h>
 

@@ -28,11 +28,12 @@
 // Built with --fmad=false, like the traversal kernels.
 //
 // What bounds it on an H100, and what the design does about it.  The first
-// design (csrc/micro_v0.cu) was the TPU kernel's one program as one
-// 1,024-thread block: one SM of 132 ran eight walks' substeps at its issue
-// rate, with 8 box and 8 triangle tests in turn in every thread and three
-// block barriers a substep.  But the eight walks share nothing, and the
-// variants are of three kinds that the card takes differently:
+// design (PR 3; its times are in PERF.md §6) was the TPU kernel's one
+// program as one 1,024-thread block: one SM of 132 ran eight walks'
+// substeps at its issue rate, with 8 box and 8 triangle tests in turn in
+// every thread and three block barriers a substep.  But the eight walks
+// share nothing, and the variants are of three kinds that the card takes
+// differently:
 //   * full, node, vector are true chains: the vote of substep i names the
 //     row of substep i + 1.  A walk is a thread block cluster of 8 blocks on
 //     as many SMs (64 blocks a launch), a block 16 of the walk's lanes, and
@@ -71,7 +72,7 @@
 //     kAhead - 1 rows in flight as asynchronous copy groups and works out 32
 //     substeps' row numbers at a time, a lane each.
 // On an NVIDIA H100 80GB HBM3 at 700 W, K = 4096, the bench scene's table
-// (chip_smoke.py's [versus] and [micro_bound] lines; first design -> this):
+// (chip_smoke.py's [micro_bound] lines; first design -> this, PR 5):
 // full 21.9 -> 3.07 ms (~1,480 cycles a substep; `node` costs the same: the
 // control warp's two integer modulos and nine-row fetch are the longer
 // path, `vector`, which fetches nothing, 2.16 ms), leaf / leaf2 / leaf4 14.4

@@ -23,8 +23,8 @@
 // chip_smoke.py's [shape] lines) half of the 256 packets end at the root and
 // one makes 1,047 visits, so the launch lasts as long as that packet; the
 // first bounce's 512 packets make 357 visits each in the mean and fill the
-// card.  As one 1,024-thread block (walk.cu `fspt_walk1_block`) a visit
-// costs ~4,300 cycles: one SM's issue time for 32 warps under a 64-register
+// card.  As one 1,024-thread block (the design before, PR 2-4) a visit
+// cost ~4,300 cycles: one SM's issue time for 32 warps under a 64-register
 // cap, with nothing else resident on the SM while they wait at the barrier.
 // Here a visit of a packet that has its SMs to itself costs ~1,700, and the
 // bounce launch runs at walk.cu's lane-visits a millisecond.  A
@@ -46,7 +46,7 @@
 //     barrier of the cluster: a round of plain stores and barrier.cluster
 //     costs ~1,400 cycles on this card whatever the cluster's size, the
 //     round of counted stores ~500, the round inside one 1,024-thread block
-//     ~660 (fspt_tpu_torch/scripts/cluster_barrier_bench.cu), and a packet
+//     ~660 (PR 5, PERF_FINDINGS_ARCHIVE.md), and a packet
 //     is a chain of such rounds (with the vote through barrier.cluster
 //     this kernel took 1.06 against 0.93 ms on the camera rays and 4.7
 //     against 4.3 on the first bounce);

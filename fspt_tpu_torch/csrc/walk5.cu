@@ -42,11 +42,12 @@
 // What bounds it on an H100, and what the design does about it.  The floor
 // is float operations (every lane tests every row its walk visits), but the
 // time is a chain: a substep's rows are known only once the last substep's
-// pushes are.  The first design (csrc/walk5_v0.cu) ran a program as one
-// 1,024-thread block whose 8 walks stepped together, three block barriers a
-// substep over 1,024 threads, a walk that had finished waiting at every
-// barrier of the longest one; csrc/micro_v0.cu priced that shape at ~5,350
-// ns a substep against ~750 for a walk on SMs of its own.  But the JAX
+// pushes are.  The first design ran a program as one 1,024-thread block
+// whose 8 walks stepped together, three block barriers a substep over 1,024
+// threads, a walk that had finished waiting at every barrier of the longest
+// one; the micro's first design priced that shape at ~5,350 ns a substep
+// against ~750 for a walk on SMs of its own (PR 3-5,
+// PERF_FINDINGS_ARCHIVE.md).  But the JAX
 // semantics tie the 8 walks together only at burst boundaries (the vote, and
 // the loop's end); inside a burst a walk's substeps touch its own state
 // alone.  So here:
@@ -71,15 +72,15 @@
 //     the first substep with nothing to do, and joins every vote until its
 //     cluster stops.
 // On an NVIDIA H100 80GB HBM3 at 700 W, on the captured bounce-0 launch of
-// the studies (342 programs; chip_smoke.py's [shape] and [versus] lines):
-// 2.27 -> 1.10 ms against the first design, ~10% of the bound.  64 registers hold the card to 8
-// blocks an SM and 124 clusters at once; a substep of the median program
-// costs ~8,700 cycles, ~5,700 when the block has its SM to itself, so the
-// SM's issue rate shared by 8 walks sets it, and a walk waits at the burst
-// votes for its program's longest walk (1.58x the mean) as long as it works.
-// Fewer blocks an SM, more (with spills), skipping invalid children one by
-// one, the two drain units' tests side by side and the pushes a pass a unit
-// all measured equal or slower (fspt_tpu_torch/scripts/perf_walk5_forms.py).
+// the studies (342 programs; PR 6, PERF_FINDINGS_ARCHIVE.md): 2.27 -> 1.10
+// ms against the first design, ~10% of the bound.  64 registers hold the
+// card to 8 blocks an SM and 124 clusters at once; a substep of the median
+// program costs ~8,700 cycles, ~5,700 when the block has its SM to itself,
+// so the SM's issue rate shared by 8 walks sets it, and a walk waits at the
+// burst votes for its program's longest walk (1.58x the mean) as long as it
+// works.  Fewer blocks an SM, more (with spills), skipping invalid children
+// one by one, the two drain units' tests side by side and the pushes a pass
+// a unit all measured equal or slower (PR 6).
 
 #include <cooperative_groups.h>
 
@@ -96,14 +97,6 @@ constexpr int kMaxUnits = 8;       // npop + lpop: MAX_UNITS
 constexpr int kStack5Cap = 1024;   // stack_depth: STACK_CAP
 constexpr int kQueueCap = 1024;    // qcap: QCAP_CAP
 constexpr unsigned kFull = 0xffffffffu;
-
-// What the measuring entry point writes, kStats ints a block: its program's
-// bursts, drain bursts, drain bursts voted with no walk alive and leaves
-// queued and substeps (the bursts' lengths summed), then the block's clock
-// cycles from its start to its end, its substeps that had work, and the
-// cycles its thread 0 (warp 0, which keeps the walk) spent in each phase.
-enum Phase { kVote, kWait, kBox, kVotes, kPush, kPlan, kMt, kPhases };
-constexpr int kStats = 6 + kPhases;
 
 // the burst vote's word, one a walk
 constexpr unsigned kNearFull = 1u;     // qlen + tree_width*unroll*npop > qcap
@@ -133,11 +126,11 @@ struct Plan {
   unsigned nodes;
 };
 
-template <int TW, bool ANY_HIT, bool STATS>
+template <int TW, bool ANY_HIT>
 __global__ void __launch_bounds__(kLanes, 8)
 walk5_kernel(const float* __restrict__ nodes,
              const float* __restrict__ leaves, Rays rays, Params p, Hits hits,
-             int* __restrict__ error, int* __restrict__ stats) {
+             int* __restrict__ error) {
   __shared__ __align__(16) float panel[2][kMaxUnits][kRow];
   __shared__ float sums[3][kLanes];
   __shared__ Sub sub[2];
@@ -157,17 +150,6 @@ walk5_kernel(const float* __restrict__ nodes,
   const int i = (blockIdx.x / kWalks) * kProgram + rank * kLanes + tid;
   const bool real = i < p.n;
   const bool leader = rank == 0 && tid == 0;
-  // the measuring entry point's clock, in thread 0: lap(k) adds the cycles
-  // since the last lap to phase k
-  long long t0 = 0, tick = 0;
-  int ph[kPhases] = {};
-  auto lap = [&](int k) {
-    if (STATS && tid == 0) {
-      const long long now = clock64();
-      ph[k] += static_cast<int>(now - tick);
-      tick = now;
-    }
-  };
 
   Ray q;
   q.ox = real ? rays.ox[i] : 1.0e9f;
@@ -209,7 +191,6 @@ walk5_kernel(const float* __restrict__ nodes,
   cluster.sync();
   // lane r of warp 0 sends the walk's word to block r
   if (keeper && lane < kWalks) vote.aim(&board, rank, lane);
-  if (STATS && tid == 0) t0 = tick = clock64();
 
   // ---- warp 0: the walk's state, alike in all its lanes -------------------
   int cur = 0, ptr = 1, qlen = 0, vis = 0;   // at the root; stack[0] sentinel
@@ -308,7 +289,6 @@ walk5_kernel(const float* __restrict__ nodes,
   // ---- bursts until no walk of the program has work below the backstop --
   const int push_bound = TW * p.unroll * p.npop;
   int bank = 0;                      // alike in every thread
-  int bursts = 0, drains = 0, idle_drains = 0, substeps = 0, worked = 0;
   unsigned any, all;
   while (true) {
     // the burst vote: the only words between the walks
@@ -319,29 +299,19 @@ walk5_kernel(const float* __restrict__ nodes,
                                                                     : 0u) |
                 (abort ? kAbort : 0u));
     vote.collect(&board, tid == 0, any, all);
-    lap(kVote);
     if ((any & kAbort) || !(any & kKeep)) break;
     const bool drain = (any & kNearFull) || (!(any & kAlive) && (any & kQueued));
     const int reps = drain ? p.drain_unroll : p.unroll;
-    if (STATS) {
-      ++bursts;
-      drains += drain;
-      idle_drains += !(any & kAlive) && (any & kQueued);
-      substeps += reps;
-    }
     Plan pl;
     if (keeper) pl = plan(drain, bank);
-    lap(kPlan);
     for (int r = 0; r < reps; ++r) {
       if (keeper) copies_landed();
       __syncthreads();               // the rows and sub[bank] are seen
-      lap(kWait);
       const unsigned node_units = sub[bank].nodes, has = sub[bank].has;
       if (!(node_units | has)) {     // parked, queue empty: done for good
         bank ^= 1;
         break;
       }
-      if (STATS) ++worked;
       const bool more = r + 1 < reps;
       const int first_drain = drain ? 0 : p.npop;
       Plan next;
@@ -353,9 +323,7 @@ walk5_kernel(const float* __restrict__ nodes,
               kFull, box_tests<TW>(q, planes, panel[bank][u]));
           if (lane == 0) votes[u][warp] = m;
         }
-        lap(kBox);
         __syncthreads();             // the votes
-        lap(kVotes);
       }
       if (keeper) {
         if (drain) {
@@ -367,16 +335,13 @@ walk5_kernel(const float* __restrict__ nodes,
           abort = true;
           cur = kSentinel, ptr = 0, qlen = 0;
         }
-        lap(kPush);
         if (!ANY_HIT && more) next = plan(drain, bank ^ 1);
-        lap(kPlan);
       }
       // ---- then the drain units' Moller-Trumbore, which updates best t --
       const int taken = __popc(has);
       for (int u = 0; u < taken; ++u)
         leaf_tests(q, panel[bank][first_drain + u], p.leaf_size,
                    sub[bank].ord[u] * p.leaf_size, lane);
-      lap(kMt);
       if (ANY_HIT) {
         // the walk ends once all its lanes have a hit (or tmax <= 0)
         const bool d = __all_sync(kFull, (q.bs >= 0) | (q.bt <= 0.0f));
@@ -387,7 +352,6 @@ walk5_kernel(const float* __restrict__ nodes,
             cur = kSentinel, ptr = 0, qlen = 0;
           if (more) next = plan(drain, bank ^ 1);
         }
-        lap(kPlan);
       }
       if (keeper && more) pl = next;
       bank ^= 1;
@@ -405,12 +369,6 @@ walk5_kernel(const float* __restrict__ nodes,
   }
   if (leader && !(any & kAbort) && (any & (kAlive | kQueued)))
     atomicAdd(error + 1, 1);
-  if (STATS && tid == 0) {
-    int* s = stats + blockIdx.x * kStats;
-    s[0] = bursts, s[1] = drains, s[2] = idle_drains, s[3] = substeps;
-    s[4] = static_cast<int>(clock64() - t0), s[5] = worked;
-    for (int k = 0; k < kPhases; ++k) s[6 + k] = ph[k];
-  }
   // no block leaves while another may still store into its shared memory
   cluster.sync();
 }
@@ -419,10 +377,6 @@ walk5_kernel(const float* __restrict__ nodes,
 inline void geometry(int n, int* blocks, int* threads) {
   *blocks = (n + kProgram - 1) / kProgram * kWalks;
   *threads = kLanes;
-}
-
-inline size_t dynamic_smem(int stack_depth, int qcap) {
-  return static_cast<size_t>(stack_depth + qcap) * sizeof(int);
 }
 
 cudaLaunchConfig_t cluster_config(int blocks, size_t smem, cudaStream_t s,
@@ -441,65 +395,20 @@ cudaLaunchConfig_t cluster_config(int blocks, size_t smem, cudaStream_t s,
   return cfg;
 }
 
-template <int TW, bool ANY, bool STATS>
-int launch_one(const float* nodes, const float* leaves, const Rays& rays,
-               const Params& p, const Hits& hits, int* error, int* stats,
-               cudaStream_t stream) {
+template <int TW, bool ANY>
+int launch(const float* nodes, const float* leaves, const Rays& rays,
+           const Params& p, const Hits& hits, int* error,
+           cudaStream_t stream) {
   int blocks, threads;
   geometry(p.n, &blocks, &threads);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(
-      blocks, dynamic_smem(p.stack_depth, p.qcap), stream, attr);
+  // the stack [stack_depth] and the queue [qcap]
+  const size_t smem = static_cast<size_t>(p.stack_depth + p.qcap) * sizeof(int);
+  const cudaLaunchConfig_t cfg = cluster_config(blocks, smem, stream, attr);
   // a launch that CUDA refuses (no room for the cluster) is an error
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, walk5_kernel<TW, ANY, STATS>,
-                                           nodes, leaves, rays, p, hits, error,
-                                           stats);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, walk5_kernel<TW, ANY>, nodes,
+                                           leaves, rays, p, hits, error);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-template <bool STATS>
-int launch(const float* nodes, const float* leaves, int node_rows,
-           int leaf_rows, const float* ox, const float* oy, const float* oz,
-           const float* dx, const float* dy, const float* dz,
-           const float* tmax, int n, int leaf_size, int stack_depth, int qcap,
-           int unroll, int drain_unroll, int npop, int lpop, int tree_width,
-           int any_hit, float* t, int* slot, float* u, float* v, int* visits,
-           int* error, int* stats, void* stream) {
-  if (n < 0 || leaf_size < 1 || leaf_size * 9 > kRow || stack_depth < 1 ||
-      stack_depth > kStack5Cap || qcap > kQueueCap || npop < 1 || lpop < 0 ||
-      npop + lpop > kMaxUnits || unroll < 1 || drain_unroll < 1 ||
-      (tree_width != 8 && tree_width != 16) ||
-      qcap < tree_width * unroll * npop)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const Rays rays{ox, oy, oz, dx, dy, dz, tmax};
-  const Params p{n,     leaf_size, stack_depth, qcap,
-                 unroll, drain_unroll, npop, lpop,
-                 8 * (node_rows + leaf_rows + 64)};
-  const Hits hits{t, slot, u, v, visits};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tree_width == 8)
-    return any_hit
-               ? launch_one<8, true, STATS>(nodes, leaves, rays, p, hits,
-                                            error, stats, s)
-               : launch_one<8, false, STATS>(nodes, leaves, rays, p, hits,
-                                             error, stats, s);
-  return any_hit ? launch_one<16, true, STATS>(nodes, leaves, rays, p, hits,
-                                               error, stats, s)
-                 : launch_one<16, false, STATS>(nodes, leaves, rays, p, hits,
-                                                error, stats, s);
-}
-
-template <int TW, bool ANY>
-int occupancy_of(size_t smem, int* clusters, int* blocks_per_sm) {
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(kWalks, smem, 0, attr);
-  cudaError_t e = cudaOccupancyMaxActiveClusters(
-      clusters, walk5_kernel<TW, ANY, false>, &cfg);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, walk5_kernel<TW, ANY, false>, kLanes, smem);
-  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -517,27 +426,24 @@ int fspt_walk5(const float* nodes, const float* leaves, int node_rows,
                int npop, int lpop, int tree_width, int any_hit, float* t,
                int* slot, float* u, float* v, int* visits, int* error,
                void* stream) {
-  return launch<false>(nodes, leaves, node_rows, leaf_rows, ox, oy, oz, dx,
-                       dy, dz, tmax, n, leaf_size, stack_depth, qcap, unroll,
-                       drain_unroll, npop, lpop, tree_width, any_hit, t, slot,
-                       u, v, visits, error, nullptr, stream);
-}
-
-// fspt_walk5 that also writes kStats ints a block (see kStats above) into
-// `stats`, (blocks, kStats).  For measurements (ops/_versus.py); the same
-// hits to the bit.
-int fspt_walk5_stats(const float* nodes, const float* leaves, int node_rows,
-                     int leaf_rows, const float* ox, const float* oy,
-                     const float* oz, const float* dx, const float* dy,
-                     const float* dz, const float* tmax, int n, int leaf_size,
-                     int stack_depth, int qcap, int unroll, int drain_unroll,
-                     int npop, int lpop, int tree_width, int any_hit,
-                     float* t, int* slot, float* u, float* v, int* visits,
-                     int* error, void* stream, int* stats) {
-  return launch<true>(nodes, leaves, node_rows, leaf_rows, ox, oy, oz, dx, dy,
-                      dz, tmax, n, leaf_size, stack_depth, qcap, unroll,
-                      drain_unroll, npop, lpop, tree_width, any_hit, t, slot,
-                      u, v, visits, error, stats, stream);
+  if (n < 0 || leaf_size < 1 || leaf_size * 9 > kRow || stack_depth < 1 ||
+      stack_depth > kStack5Cap || qcap > kQueueCap || npop < 1 || lpop < 0 ||
+      npop + lpop > kMaxUnits || unroll < 1 || drain_unroll < 1 ||
+      (tree_width != 8 && tree_width != 16) ||
+      qcap < tree_width * unroll * npop)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const Rays rays{ox, oy, oz, dx, dy, dz, tmax};
+  const Params p{n,     leaf_size, stack_depth, qcap,
+                 unroll, drain_unroll, npop, lpop,
+                 8 * (node_rows + leaf_rows + 64)};
+  const Hits hits{t, slot, u, v, visits};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tree_width == 8)
+    return any_hit ? launch<8, true>(nodes, leaves, rays, p, hits, error, s)
+                   : launch<8, false>(nodes, leaves, rays, p, hits, error, s);
+  return any_hit ? launch<16, true>(nodes, leaves, rays, p, hits, error, s)
+                 : launch<16, false>(nodes, leaves, rays, p, hits, error, s);
 }
 
 // The grid and the block of fspt_walk5's launch for n rays, launching
@@ -545,20 +451,6 @@ int fspt_walk5_stats(const float* nodes, const float* leaves, int node_rows,
 int fspt_walk5_geometry(int n, int* blocks, int* threads) {
   geometry(n, blocks, threads);
   return 0;
-}
-
-// The clusters of fspt_walk5 that the card holds at once
-// (cudaOccupancyMaxActiveClusters) and its blocks an SM, at these sizes.
-int fspt_walk5_occupancy(int tree_width, int any_hit, int stack_depth,
-                         int qcap, int* clusters, int* blocks_per_sm) {
-  const size_t smem = dynamic_smem(stack_depth, qcap);
-  if (tree_width == 8)
-    return any_hit ? occupancy_of<8, true>(smem, clusters, blocks_per_sm)
-                   : occupancy_of<8, false>(smem, clusters, blocks_per_sm);
-  if (tree_width == 16)
-    return any_hit ? occupancy_of<16, true>(smem, clusters, blocks_per_sm)
-                   : occupancy_of<16, false>(smem, clusters, blocks_per_sm);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* fspt_cuda_error_string(int code) {

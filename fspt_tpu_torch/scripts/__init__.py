@@ -6,9 +6,7 @@ CUDA under csrc/ with its plain PyTorch version beside it.
   traverse5_proto   packet_traverse5, the mixed-substep walk (csrc/walk5.cu);
   perf_r5i          v4 against v5 on the captured launch;
   perf_r5_treelet   the two-level TLAS + dense-MT study (csrc/dense_mt.cu);
-  perf_r5d          the fixed-iteration substep micro (csrc/micro.cu);
-  perf_walk_launches, perf_walk5_forms
-                    the kernels against their earlier designs and forms.
+  perf_r5d          the fixed-iteration substep micro (csrc/micro.cu).
 
 Run a study on the card as `python -m fspt_tpu_torch.scripts.perf_r5i`
 (likewise perf_r5_treelet, perf_r5d).

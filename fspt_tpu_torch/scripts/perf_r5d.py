@@ -29,11 +29,6 @@ because csrc/micro.cu lays the three families on the card differently:
   * fetch, fetch1 sum in substep order: one chain a walk, a block a walk,
     the known rows kept in flight ahead.  ns/substep is a consume step with
     the fetch hidden.
-The first design (csrc/micro_v0.cu: the TPU kernel's one program as one
-1,024-thread block, so one SM's issue rate for eight walks, which is what
-a substep of the one-block programs of csrc/walk5_v0.cu costs) stays
-measurable:
-`main` prints its time beside each variant's (through ops/_versus.py).
 
 `micro` dispatches on the tensors' device: the plain version
 (`micro_reference`, a torch loop over k) for CPU tensors; for CUDA tensors
@@ -278,25 +273,20 @@ def _seconds(fn, reps):
 
 def main(scene=None, k: int = K, reps: int = 20):
     """ns/substep of the script's four variants on the card (see the module
-    docstring for what it means for each family), each beside the first
-    design's (csrc/micro_v0.cu, 3 runs); returns {variant: ns/substep}."""
+    docstring for what it means for each family); returns {variant:
+    ns/substep}."""
     if not torch.cuda.is_available():
         raise SystemExit("perf_r5d: needs a CUDA device")
-    from fspt_tpu_torch.ops._versus import micro_launcher
     dev = torch.device("cuda")
     table, rays = make_inputs(dev, scene)
     out = {}
     for variant in MAIN_VARIANTS:
         dt = _seconds(lambda: micro(table, rays, variant, k), reps)
-        first = _seconds(micro_launcher("micro_v0", table, rays, variant, k),
-                         3)
         out[variant] = dt / k * 1e9
         what = ("a walk's latency" if variant in _NODE
                 else "work over time")
         print(f"{variant:8s} {dt / k * 1e9:8.1f} ns/substep, {what} "
-              f"({dt * 1e3:.3f} ms for {k}); first design "
-              f"{first / k * 1e9:8.1f} ns/substep ({first * 1e3:.2f} ms), "
-              f"{first / dt:.1f}x", flush=True)
+              f"({dt * 1e3:.3f} ms for {k})", flush=True)
     return out
 
 

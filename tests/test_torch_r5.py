@@ -351,19 +351,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _first_design(inputs, device, T):
-    """(t, slot) of csrc/dense_mt_v0.cu on the same inputs."""
-    from fspt_tpu_torch.ops._versus import dense_mt_launcher
-    leaves, tile_tl, rays = (torch.from_numpy(a).to(device) for a in inputs)
-    return dense_mt_launcher("dense_mt_v0", tile_tl, leaves, rays, T)()
-
-
-def _same(a, b):
-    """Bit for bit, NaN where NaN."""
-    return all(bool(((x == y) | (x.isnan() & y.isnan())).all())
-               for x, y in zip(a, b))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", perf_r5_treelet.TREELETS)
 def test_cuda_dense_mt_bit_exact_vs_plain(dense_inputs, cuda_device, T):
@@ -377,8 +364,6 @@ def test_cuda_dense_mt_bit_exact_vs_plain(dense_inputs, cuda_device, T):
     tp, sp = _dense((leaves, tile_tl, rays), cuda_device, reference=True,
                     T=T)
     assert torch.equal(t, tp) and torch.equal(slot, sp)
-    assert _same((t, slot), _first_design((leaves, tile_tl, rays),
-                                          cuda_device, T))
     assert int((slot >= 0).sum()) > 0
 
 
@@ -412,7 +397,6 @@ def test_cuda_dense_mt_tiles_bit_exact(dense_inputs, cuda_device, T, rows,
     t, slot = _dense(inputs, cuda_device, T=T)
     tp, sp = _dense(inputs, cuda_device, reference=True, T=T)
     assert torch.equal(t, tp) and torch.equal(slot, sp)
-    assert _same((t, slot), _first_design(inputs, cuda_device, T))
     assert int((slot >= 0).sum()) > 0
 
 
@@ -431,8 +415,6 @@ def test_cuda_dense_mt_out_of_range_treelet(dense_inputs, cuda_device, T):
     tp, sp = _dense((leaves, tile_tl[:1], rays[:1]), cuda_device,
                     reference=True, T=T)
     assert torch.equal(t[:1], tp) and torch.equal(slot[:1], sp)
-    assert _same((t, slot), _first_design((leaves, tile_tl, rays),
-                                          cuda_device, T))
 
 
 @pytest.mark.cuda

@@ -46,7 +46,8 @@ from fspt_tpu_torch.core.env import (env_radiance, env_radiance_rows,
 from fspt_tpu_torch.core.geometry import brute_force_intersect
 from fspt_tpu_torch.core.rng import stream_uniforms
 from fspt_tpu_torch.core.vec import V3, dot, normalize, where
-from fspt_tpu_torch.ops.traverse import PacketHit, packet_traverse
+from fspt_tpu_torch.ops.traverse import (PacketHit, count_launch,
+                                         packet_traverse)
 from fspt_tpu_torch.ops.traverse3 import packet_traverse3
 from fspt_tpu_torch.ops.traverse4 import packet_traverse4
 from fspt_tpu_torch.trace import span
@@ -241,7 +242,7 @@ def atlas_fetch_rgb(meta, layer, u, v, rows) -> V3:
 
 
 class TexTables(NamedTuple):
-    """Loop-invariant texture tables, built once per traced sample.
+    """Loop-invariant texture tables (_packed_tables).
 
       mat_tex: (U*R*R, 24) — the four material maps of each combined
           material plus the x-neighbour texel's (a bilinear fetch of all
@@ -250,7 +251,8 @@ class TexTables(NamedTuple):
       env6: (H*W, 6) — x-neighbour-packed environment map; None makes
           shading filter the flat env planes instead (env_radiance).
       bins4: (B, 4) — env importance bins as rows.
-      atlas_rows: (L*R*R, 3) — per-map fallback table.
+      atlas_rows: (L*R*R, 3) — per-map fallback table; None with mat_tex,
+          so that tables built ahead hold only what the trace reads.
       light_cdf, light_area: the area lights' CDF and total area
           (light_tables), with cfg.use_light_nee; else None.
     """
@@ -258,7 +260,7 @@ class TexTables(NamedTuple):
     mat_tex: Optional[torch.Tensor]
     env6: Optional[torch.Tensor]
     bins4: torch.Tensor
-    atlas_rows: torch.Tensor
+    atlas_rows: Optional[torch.Tensor]
     light_cdf: Optional[torch.Tensor] = None
     light_area: Optional[torch.Tensor] = None
 
@@ -268,9 +270,14 @@ _MAT_TEX_BUDGET_BYTES = 2 * 1024 ** 3
 
 
 def _packed_tables(scene, cfg: RenderConfig, meta) -> TexTables:
-    """Built from the scene tensors inside every trace, never cached: the
-    tables are differentiable functions of the atlas and env parameters,
-    so each call's graph reaches the caller's leaves."""
+    """The texture tables of the scene tensors.  They are differentiable
+    functions of the atlas and env parameters, so a trace that may be
+    differentiated builds them itself (scene_tables), and its graph reaches
+    the caller's leaves: the train step's gradient needs that.  A caller
+    that asks no gradient may build them ahead, once for as long as the
+    scene tensors hold their values, and hand them to the trace
+    (trace_paths' `tables`): runtime/renderer.py StepGraph does, once a
+    capture or scene refresh."""
     atlas_rows = torch.stack([scene.atlas_r, scene.atlas_g, scene.atlas_b],
                              dim=-1)
     r = meta.atlas_res
@@ -287,8 +294,31 @@ def _packed_tables(scene, cfg: RenderConfig, meta) -> TexTables:
                          scene.bin_y1], dim=-1)
     lights = light_tables(scene) if cfg.use_light_nee else (None, None)
     return TexTables(mat_tex=mat_tex, env6=env6, bins4=bins4,
-                     atlas_rows=atlas_rows, light_cdf=lights[0],
+                     atlas_rows=atlas_rows if mat_tex is None else None,
+                     light_cdf=lights[0],
                      light_area=lights[1])
+
+
+class SceneTables(NamedTuple):
+    """What a trace reads of the scene besides its tree and its raw
+    tensors: the texture tables and the (S, 43) attribute table."""
+
+    tex: TexTables
+    attr: torch.Tensor
+
+
+def scene_tables(scene, cfg: RenderConfig, meta) -> SceneTables:
+    """The scene's tables, built from its tensors.  Every build counts one
+    in `scene_tables.launches` (while a CUDA graph is captured, in
+    `.captured`: ops/traverse.py count_launch)."""
+    with span("tables"):
+        count_launch(scene_tables, scene.pk_nodes.device)
+        return SceneTables(_packed_tables(scene, cfg, meta),
+                           _attr_table(scene))
+
+
+scene_tables.launches = 0
+scene_tables.captured = 0
 
 
 def light_tables(scene):
@@ -546,12 +576,15 @@ def _deposit(drops, state, n):
 
 def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
                 key, lane_offset=0, return_stats: bool = False,
-                count_refracted: bool = False):
+                count_refracted: bool = False,
+                tables: Optional[SceneTables] = None):
     """Path-trace one sample for every input ray.  Returns V3 (N,) radiance
     (or (radiance, TraceStats) when return_stats; TraceStats.refracted
     counted with count_refracted).  key: host key data or its (2,) int64
     device row (core/rng.py).  lane_offset: global lane id of ray 0, or an
-    (N,) tensor of explicit ids."""
+    (N,) tensor of explicit ids.  tables: scene_tables of `scene`, built
+    ahead by a caller that asks no gradient of them (_packed_tables); None
+    builds them inside the trace."""
     _check_streams(cfg)
     n = origin.x.shape[0]
     dev = origin.x.device
@@ -560,9 +593,7 @@ def trace_paths(scene, cfg: RenderConfig, meta, origin: V3, direction: V3,
     else:
         gid0 = int(lane_offset) + torch.arange(n, dtype=torch.int32,
                                                device=dev)
-    with span("tables"):
-        tex = _packed_tables(scene, cfg, meta)
-    attr = _attr_table(scene)
+    tex, attr = scene_tables(scene, cfg, meta) if tables is None else tables
     state = _primary_state(scene, cfg, meta, tex, origin, direction,
                            torch.arange(n, dtype=torch.int32, device=dev),
                            gid0)
@@ -627,7 +658,8 @@ def _merged_groups(cfg: RenderConfig, n_per: int, n_tot: int):
 
 def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
                         direction: V3, batch_key, n_per: int,
-                        return_stats: bool = False):
+                        return_stats: bool = False,
+                        tables: Optional[SceneTables] = None):
     """Cross-sample wavefront batch: K = n_total / n_per samples traced so
     their compacted tails share launches.
 
@@ -641,7 +673,7 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
 
     batch_key: host key data, or the (K, 2) int64 device table of the
     samples' keys (row k the key data of fold_in(batch_key, k)), which a
-    captured sample step reads.
+    captured sample step reads.  tables: as trace_paths takes them.
 
     Returns the SUM over the K samples of their (clamped) radiance as V3
     (n_per,) planes (and TraceStats when return_stats)."""
@@ -657,9 +689,7 @@ def trace_paths_batched(scene, cfg: RenderConfig, meta, origin: V3,
     else:
         key_rows = rng.key_rows_tensor(
             rng.key_rows_for(batch_key, k_samples), dev)
-    with span("tables"):
-        tex = _packed_tables(scene, cfg, meta)
-    attr = _attr_table(scene)
+    tex, attr = scene_tables(scene, cfg, meta) if tables is None else tables
     groups_a, its_a, groups_b = _merged_groups(cfg, n_per, n_tot)
 
     states, per_a, rr, drops = [], [], [], []

@@ -125,12 +125,16 @@ def error_flag(device) -> torch.Tensor:
 
 
 def count_launch(counter, device):
-    """Count one launch of a traversal kernel on `device`'s current stream:
-    in `counter.launches`, or, while that stream captures a CUDA graph, in
-    `counter.captured` (the graph's replays launch it; the replays add to
-    `launches`, runtime/renderer.py StepGraph)."""
-    with torch.cuda.device(device):
-        capturing = torch.cuda.is_current_stream_capturing()
+    """Count one launch of a traversal kernel (or of other counted device
+    work: ops/pcg4d.py, core/integrator.py scene_tables) on `device`'s
+    current stream: in `counter.launches`, or, while that stream captures
+    a CUDA graph, in `counter.captured` (the graph's replays launch it;
+    the replays add to `launches`, runtime/renderer.py StepGraph).  A CPU
+    device never captures."""
+    capturing = False
+    if torch.device(device).type == "cuda":
+        with torch.cuda.device(device):
+            capturing = torch.cuda.is_current_stream_capturing()
     if capturing:
         counter.captured += 1
     else:

@@ -22,8 +22,13 @@ viewer does so before it serves events).
 Its inputs are copies of the camera and scene tensors, refreshed before a
 replay wherever `Renderer.camera` or `Renderer.arrays` holds another
 tensor of the same shape; another shape, config or scene is captured
-anew.  The accumulation stays outside the graph, so every step binds
-`accum` to a new tensor as the eager step does.  `sample_step` stays the
+anew.  The scene's tables (core/integrator.py scene_tables: the 2 GB
+material table of a textured scene among them) are built from the copies
+outside the graph, once a capture and again wherever a scene tensor was
+copied, and the graph reads them as inputs: a replay asks no gradient, so
+none is lost, and rebuilds nothing.  The accumulation stays outside the
+graph, so every step binds `accum` to a new tensor as the eager step
+does.  `sample_step` stays the
 eager path (the CPU's, and the oracle the card's tests hold replays to).
 """
 
@@ -38,8 +43,9 @@ import torch
 from fspt_tpu_torch.config import CameraConfig, PostConfig, RenderConfig
 from fspt_tpu_torch.core import rng, vec
 from fspt_tpu_torch.core.camera import generate_rays
-from fspt_tpu_torch.core.integrator import (check_config, trace_heatmap,
-                                            trace_paths, trace_paths_batched)
+from fspt_tpu_torch.core.integrator import (check_config, scene_tables,
+                                            trace_heatmap, trace_paths,
+                                            trace_paths_batched)
 from fspt_tpu_torch.core.tonemap import postprocess
 from fspt_tpu_torch.core.traversal import intersect_scene
 from fspt_tpu_torch.ops.pcg4d import pcg4d_uniforms
@@ -84,13 +90,15 @@ def counts_light(cfg: RenderConfig) -> bool:
 
 
 def _sample_terms(scene, cfg: RenderConfig, meta, cam: CameraState,
-                  sample_keys, batch_key, resolution, pixel_idx):
+                  sample_keys, batch_key, resolution, pixel_idx,
+                  tables=None):
     """Raygen and trace of one sample batch: cfg.batch_spp samples, sample
     i keyed sample_keys[i] (host key data or a (2,) int64 device row);
-    batch_key is what trace_paths_batched takes.  Returns (radiance, rays):
-    the (3, N) radiance terms and the ray counts that `_accumulate` adds
-    (with counts_light(cfg), each [rays, light shadow rays]), one each for
-    the wavefront batch, one a sample otherwise."""
+    batch_key is what trace_paths_batched takes; tables, the scene's
+    tables built ahead, or None (the traces build them).  Returns
+    (radiance, rays): the (3, N) radiance terms and the ray counts that
+    `_accumulate` adds (with counts_light(cfg), each [rays, light shadow
+    rays]), one each for the wavefront batch, one a sample otherwise."""
     n = pixel_idx.shape[0]
     if counts_light(cfg):
         count = lambda st: torch.stack([st.rays, st.light.sum()])
@@ -112,7 +120,7 @@ def _sample_terms(scene, cfg: RenderConfig, meta, cam: CameraState,
         direction = vec.cat([d for _, d in per])
         radiance, stats = trace_paths_batched(
             scene, cfg, meta, origin, direction, batch_key, n_per=n,
-            return_stats=True)
+            return_stats=True, tables=tables)
         return [planes(radiance)], [count(stats)]
 
     radiance, rays = [], []
@@ -125,7 +133,7 @@ def _sample_terms(scene, cfg: RenderConfig, meta, cam: CameraState,
             rays.append(float(n))
         else:
             r, stats = trace_paths(scene, cfg, meta, origin, direction, k,
-                                   return_stats=True)
+                                   return_stats=True, tables=tables)
             radiance.append(planes(r))
             rays.append(count(stats))
     return radiance, rays
@@ -168,36 +176,40 @@ def _clone(tree):
     return tree.clone() if torch.is_tensor(tree) else tree
 
 
-def refresh_inputs(static: list, seen: list, leaves: list) -> bool:
+def refresh_inputs(static: list, seen: list, leaves: list) -> Optional[bool]:
     """Bring a graph's static input tensors up to `leaves`: copy each leaf
-    that is not the tensor copied last time (`seen`, updated); False where
-    a leaf differs in shape, dtype or device, or is no tensor, so that the
-    graph must be captured again."""
+    that is not the tensor copied last time (`seen`, updated).  Returns
+    whether a leaf was copied; None where a leaf differs in shape, dtype
+    or device, or is no tensor, so that the graph must be captured
+    again."""
     if len(leaves) != len(static):
-        return False
+        return None
+    copied = False
     for i, (dst, new) in enumerate(zip(static, leaves)):
         if new is seen[i]:
             continue
         if not (torch.is_tensor(new) and new.shape == dst.shape
                 and new.dtype == dst.dtype and new.device == dst.device):
-            return False
+            return None
         dst.copy_(new)
         seen[i] = new
-    return True
+        copied = True
+    return copied
 
 
 # the launch counters a replay advances as the captured step did
 _COUNTERS = (packet_traverse4, packet_traverse3, packet_traverse,
-             pcg4d_uniforms)
+             pcg4d_uniforms, scene_tables)
 
 
 class StepGraph:
     """One sample batch of a Renderer as a CUDA graph, and the static inputs
-    it reads: the (batch_spp, 2) int64 key table (`set_keys`) and copies of
-    the camera and scene tensors (brought up to date by `holds`).  The
-    outputs, `radiance` and `rays`, are overwritten by each replay; the
-    caller accumulates them before the next.  `run_body` is what the graph
-    holds, traced eagerly from the static inputs."""
+    it reads: the (batch_spp, 2) int64 key table (`set_keys`), copies of
+    the camera and scene tensors (brought up to date by `holds`) and the
+    scene's tables built from the copies (`tables`).  The outputs,
+    `radiance` and `rays`, are overwritten by each replay; the caller
+    accumulates them before the next.  `run_body` is what the graph holds,
+    traced eagerly from the static inputs."""
 
     def __init__(self, r: "Renderer"):
         self.cfg, self.meta = r.cfg, r.scene.meta
@@ -205,8 +217,9 @@ class StepGraph:
         self.keys = torch.zeros((self.cfg.batch_spp, 2), dtype=torch.int64,
                                 device=r.device)
         self.camera, self.arrays = _clone(r.camera), _clone(r.arrays)
-        self._static = _leaves(self.camera) + _leaves(self.arrays)
-        self._seen = _leaves(r.camera) + _leaves(r.arrays)
+        self._camera = (_leaves(self.camera), _leaves(r.camera))
+        self._arrays = (_leaves(self.arrays), _leaves(r.arrays))
+        self.tables = scene_tables(self.arrays, self.cfg, self.meta)
         self._capture()
 
     def run_body(self):
@@ -214,7 +227,7 @@ class StepGraph:
         static inputs."""
         return _sample_terms(self.arrays, self.cfg, self.meta, self.camera,
                              self.keys, self.keys, self.resolution,
-                             self.pixel_idx)
+                             self.pixel_idx, self.tables)
 
     def _capture(self):
         t0 = time.perf_counter()
@@ -231,10 +244,21 @@ class StepGraph:
 
     def holds(self, r: "Renderer") -> bool:
         """Whether this graph serves r's config and scene, its static
-        inputs brought up to r.camera and r.arrays."""
-        return (r.cfg is self.cfg and r.scene.meta is self.meta
-                and refresh_inputs(self._static, self._seen,
-                                   _leaves(r.camera) + _leaves(r.arrays)))
+        inputs brought up to r.camera and r.arrays, and its tables rebuilt
+        in place where a scene tensor was copied."""
+        if r.cfg is not self.cfg or r.scene.meta is not self.meta:
+            return False
+        if refresh_inputs(*self._camera, _leaves(r.camera)) is None:
+            return False
+        copied = refresh_inputs(*self._arrays, _leaves(r.arrays))
+        if copied is None:
+            return False
+        if copied:
+            new = scene_tables(self.arrays, self.cfg, self.meta)
+            for dst, src in zip(_leaves(self.tables), _leaves(new)):
+                if dst is not None:
+                    dst.copy_(src)
+        return True
 
     def set_keys(self, base_key, sample_idx: int):
         """Write the key table of sample batch `sample_idx`: row i the key
@@ -277,7 +301,7 @@ class Renderer:
         self.reset()
         self._stats = {"samples": 0, "seconds": 0.0, "rays": 0.0,
                        "light_rays": 0.0, "graph_captures": 0,
-                       "graph_replays": 0}
+                       "graph_replays": 0, "table_builds": 0}
         # on a card: the first sample batch runs eagerly (the warm-up), a
         # later one is captured as a CUDA graph (_graph_due), and replays
         # run every batch after it
@@ -333,6 +357,7 @@ class Renderer:
         capture, so that no later step waits for either.  Leaves the
         accumulation alone; nothing to do on the CPU or with a graph."""
         if self._graphs and self._graph is None:
+            builds = scene_tables.launches
             if not self._warm:
                 sample_step(self.arrays, self.cfg, self.scene.meta,
                             self.camera, self.accum, self.count, self.rays,
@@ -341,11 +366,13 @@ class Renderer:
                 self._sync()
                 self._warm = True
             self._capture()
+            self._stats["table_builds"] += scene_tables.launches - builds
         return self
 
     @torch.no_grad()
     def step(self, num_batches: int = 1):
         t0 = time.perf_counter()
+        builds = scene_tables.launches
         first_call, self._stepped = not self._stepped, True
         with span("step"):
             for i in range(num_batches):
@@ -370,6 +397,7 @@ class Renderer:
         self._stats["rays"] += rays - self._rays_read
         self._stats["light_rays"] += light - self._light_read
         self._rays_read, self._light_read = rays, light
+        self._stats["table_builds"] += scene_tables.launches - builds
         return self
 
     def render(self, samples: Optional[int] = None):
@@ -482,7 +510,9 @@ class Renderer:
     def stats(self):
         s = dict(self._stats)
         # "rays" counts the active-lane rays traced, "light_rays" the light
-        # shadow rays among them (0 without light NEE)
+        # shadow rays among them (0 without light NEE); "table_builds" the
+        # builds of the scene's tables the steps ran: in every eager trace,
+        # once a capture or scene refresh of a graph, none in a replay
         n = self.cfg.width * self.cfg.height
         # upper bound: every launch's full lane count (primary + batched
         # scatter + env shadow, + light shadow when light NEE is on);

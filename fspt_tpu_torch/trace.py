@@ -18,9 +18,11 @@ The spans, each where its work happens:
                       the device alone and show no span
   fspt.traverse       core/integrator.py intersect (and the heatmap's
                       launch, and Renderer.autofocus's walk): one a launch
-  fspt.tables         core/integrator.py trace_paths and
-                      trace_paths_batched: _packed_tables, the material
-                      and env tables built once a trace
+  fspt.tables         core/integrator.py scene_tables: the material, env
+                      and attribute tables, built in trace_paths and
+                      trace_paths_batched where the caller passed none,
+                      and by runtime/renderer.py StepGraph once a capture
+                      or scene refresh
   fspt.shade          core/integrator.py _bounce: _shade_and_scatter
   fspt.atlas          _shade_and_scatter: the material maps' fetch
   fspt.light          _shade_and_scatter, with light NEE: two a bounce,

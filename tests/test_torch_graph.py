@@ -5,17 +5,22 @@ host keys; the body the graph captures, traced eagerly from its static key
 table and its camera and scene copies, equals `sample_step` bit for bit in
 the two deployments the benchmark runs (the wavefront batch and the
 per-sample path), over consecutive sample batches and across a camera
-change; the copy/recapture decision; and Renderer.step's replay path with
-the graph stood in for by the body (what a card's replay runs), against
-eager steps: when a step captures (not before enough batches follow to
-repay it), Renderer.render as one step call, and warm_up.
+change; the scene's tables, built once a capture and read by the body,
+rebuilt in place after a refit swap or an env change (and not after a
+camera change), the body still bit-equal to `sample_step`; the
+copy/recapture decision; and Renderer.step's replay path with the graph
+stood in for by the body (what a card's replay runs), against eager
+steps: when a step captures (not before enough batches follow to repay
+it), Renderer.render as one step call, and warm_up.
 
 On a card (`cuda` marker): Renderer.step replaying its graph against eager
 `sample_step` calls, bit for bit, in both deployments at a reduced size,
 with one and three batches a step, after a camera change, an arrays swap
-by refit, reset() and load_checkpoint(); a stack overflow still raises
-after a replay; a replayed step counts its traversal launches, a capture
-none; the viewer captures both renderers before it serves events.
+by refit (with and without light NEE), reset() and load_checkpoint(); a
+stack overflow still raises after a replay; a replayed step counts its
+traversal launches, a capture none; a replayed step builds no scene
+tables, a capture and a scene refresh one each; the viewer captures both
+renderers before it serves events.
 """
 
 import dataclasses
@@ -29,7 +34,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from fspt_tpu_torch import trace
 from fspt_tpu_torch.config import RenderConfig
 from fspt_tpu_torch.core import integrator, rng
-from fspt_tpu_torch.core.integrator import traversal_launches
+from fspt_tpu_torch.core.integrator import scene_tables, traversal_launches
 from fspt_tpu_torch.ops.traverse import error_flag
 from fspt_tpu_torch.ops.traverse4 import packet_traverse4
 from fspt_tpu_torch.runtime import renderer
@@ -89,6 +94,54 @@ def _moved(cam):
         [0.05, -0.02, 0.1], device=cam.position.device))
 
 
+def _refit_scene(translate, angle=0.0, lit=False):
+    """A floor and a sphere that refit moves (and, lit, a fixed emissive
+    lamp for light NEE): (scene dict, Scene)."""
+    from fspt_tpu_torch.scene.schema import load_scene_dict
+    from fspt_tpu_torch.testing import (DictAssetLoader, icosphere_obj,
+                                        quad_obj)
+    sd = {"environment": [[0.2, 0.2, 0.3], [0.8, 0.9, 1.0]],
+          "cameraPos": [0.0, 0.4, 2.2], "cameraDir": [0.0, -0.18, -0.98],
+          "samples": 8,
+          "props": [{"path": "floor.obj", "scale": 6.0,
+                     "translate": [0, -0.5, 0], "diffuse": [0.6, 0.6, 0.6],
+                     "metallicRoughness": [0.0, 0.6, 0.0],
+                     "normals": "flat"}],
+          "animated_props": [{"path": "sphere.obj", "scale": 0.4,
+                              "translate": translate,
+                              "rotate": [{"axis": [0, 1, 0],
+                                          "angle": angle}],
+                              "diffuse": [0.9, 0.4, 0.3],
+                              "metallicRoughness": [0.0, 0.3, 0.0],
+                              "normals": "smooth"}]}
+    if lit:
+        sd["props"].append({"path": "lamp.obj", "scale": 0.15,
+                            "translate": [0.8, 0.9, -0.4],
+                            "diffuse": [1.0, 1.0, 1.0],
+                            "emittance": [6.0, 5.0, 4.0],
+                            "metallicRoughness": [0.0, 1.0, 0.0],
+                            "normals": "flat"})
+    loader = DictAssetLoader(texts={"sphere.obj": icosphere_obj(2),
+                                    "floor.obj": quad_obj(),
+                                    "lamp.obj": icosphere_obj(1)})
+    return sd, load_scene_dict(sd, loader)
+
+
+def _refitted(arrays, base_sd, base, lit=False):
+    """`arrays` with the sphere of _refit_scene moved and turned by refit:
+    the same shapes, other triangles, boxes and shading frames."""
+    from fspt_tpu_torch.scene.refit import (aux_to, build_refit_aux,
+                                            delta_affines, refit_arrays)
+    from fspt_tpu_torch.scene.schema import (_prop_defaults,
+                                             merge_scene_props)
+    moved_sd, _ = _refit_scene([0.35, 0.15, -0.2], angle=0.8, lit=lit)
+    aux = aux_to(build_refit_aux(base), arrays.pk_nodes.device)
+    mats, trans = delta_affines(
+        [_prop_defaults(p) for p in merge_scene_props(base_sd)],
+        [_prop_defaults(p) for p in merge_scene_props(moved_sd)])
+    return refit_arrays(arrays, base.meta, aux, mats, trans)
+
+
 # ---- keys as device data ---------------------------------------------------
 
 @pytest.mark.parametrize("lanes", ["offset", "ids"])
@@ -146,6 +199,53 @@ def test_graph_body_matches_sample_step(scene, body_graphs, case):
         acc, count, rays = got
     assert float(count) == 3 * cfg.batch_spp
     assert float(rays) > 0
+
+
+@pytest.mark.parametrize("case,lit", [("bunny8_main", False),
+                                      ("bunny4_cli", False),
+                                      ("bunny8_main", True)])
+def test_graph_tables_follow_scene_swaps(body_graphs, case, lit):
+    """The body reads the scene's tables built ahead from the graph's
+    scene copies.  A capture builds them once; a camera change builds
+    nothing; an arrays swap by refit (other triangles and shading frames)
+    and an env_rgb change, each taken by the copy path, rebuild them once,
+    in place; and the body stays bit-equal to sample_step throughout,
+    building nothing itself."""
+    base_sd, base = _refit_scene([0.0, 0.0, 0.0], lit=lit)
+    cfg = _cfg(case, width=32, height=32, use_light_nee=lit)
+    r = Renderer(base, cfg, device="cpu")
+    builds = scene_tables.launches
+    g = StepGraph(r)
+    assert scene_tables.launches - builds == 1
+    attr = g.tables.attr
+    env6 = g.tables.tex.env6
+    first = (attr.clone(), env6.clone())
+    acc, count, rays = r.accum, r.count, r.rays
+    for idx, change in enumerate(("camera", "refit", "env")):
+        if change == "camera":
+            r.camera = _moved(r.camera)
+        elif change == "refit":
+            r.arrays = _refitted(r.arrays, base_sd, base, lit=lit)
+        else:
+            r.arrays = r.arrays._replace(env_rgb=r.arrays.env_rgb * 1.5)
+        builds = scene_tables.launches
+        assert g.holds(r)
+        assert scene_tables.launches - builds == (change != "camera")
+        want = sample_step(r.arrays, cfg, r.scene.meta, r.camera, acc, count,
+                           rays, r.base_key, idx, r.resolution, r.pixel_idx)
+        builds = scene_tables.launches
+        g.set_keys(r.base_key, idx)
+        got = renderer._accumulate(cfg, acc, count, rays, *g.run_body())
+        assert scene_tables.launches == builds
+        for w, x in zip(want, got):
+            assert torch.equal(w, x), change
+        acc, count, rays = got
+    # rebuilt into the storage the graph reads, with other values
+    assert g.tables.attr is attr and g.tables.tex.env6 is env6
+    assert not torch.equal(attr, first[0])
+    assert not torch.equal(env6, first[1])
+    if lit:
+        assert float(rays[1]) > 0
 
 
 # host reads and host-made tensors, which a CUDA graph cannot capture: a
@@ -218,19 +318,22 @@ def test_key_table_rows(scene, body_graphs):
 # ---- copy or capture again --------------------------------------------------
 
 def test_refresh_inputs_decides_copy_or_recapture():
+    """refresh_inputs copies what is new and says whether it copied; None
+    where the graph must be captured again."""
     a, b = torch.zeros(4), torch.ones(3, 2)
     static = [torch.zeros(4), torch.zeros(3, 2)]
     seen = [a, b]
-    assert refresh_inputs(static, seen, [a, b])          # nothing new
+    assert refresh_inputs(static, seen, [a, b]) is False  # nothing new
     assert torch.equal(static[1], torch.zeros(3, 2))     # nothing copied
     c = torch.full((4,), 2.0)
-    assert refresh_inputs(static, seen, [c, b])
+    assert refresh_inputs(static, seen, [c, b]) is True
     assert torch.equal(static[0], c) and seen[0] is c
-    assert not refresh_inputs(static, seen, [c, torch.ones(2, 3)])
-    assert not refresh_inputs(static, seen,
-                              [torch.zeros(4, dtype=torch.float64), b])
-    assert not refresh_inputs(static, seen, [1.0, b])
-    assert not refresh_inputs(static, seen, [c])
+    assert refresh_inputs(static, seen, [c, b]) is False
+    assert refresh_inputs(static, seen, [c, torch.ones(2, 3)]) is None
+    assert refresh_inputs(static, seen,
+                          [torch.zeros(4, dtype=torch.float64), b]) is None
+    assert refresh_inputs(static, seen, [1.0, b]) is None
+    assert refresh_inputs(static, seen, [c]) is None
 
 
 def test_arrays_swap_copies_same_shapes_and_refuses_others(scene,
@@ -440,14 +543,21 @@ def test_graphed_step_matches_eager_on_card(cuda_device, card_scene, case,
                                             num_batches):
     cfg = _card_cfg(case)
     g, e = (Renderer(card_scene, cfg, device="cuda") for _ in range(2))
+    builds = []
     for step in range(4):
         packet_traverse4.launches = 0
+        before = g.stats["table_builds"]
         g.step(num_batches)
         launches = packet_traverse4.launches
+        builds.append(g.stats["table_builds"] - before)
         _eager(e, num_batches)
         _same(g, e)
         assert launches == num_batches * traversal_launches(
             cfg, cfg.width * cfg.height, cfg.batch_spp), step
+    # eager traces build the scene's tables each, the capture once, a
+    # replay never
+    per_trace = 1 if case == "bunny8_main" else cfg.batch_spp
+    assert builds == [num_batches * per_trace, 1, 0, 0]
     assert g.stats["graph_captures"] == 1
     # the first call runs eagerly (too few batches to repay a capture)
     assert g.stats["graph_replays"] == 3 * num_batches
@@ -469,57 +579,34 @@ def test_graphed_step_other_paths_on_card(cuda_device, card_scene, kw):
     assert g.stats["graph_replays"] == 2
 
 
-def _refit_scene(translate, angle=0.0):
-    from fspt_tpu_torch.scene.schema import load_scene_dict
-    from fspt_tpu_torch.testing import (DictAssetLoader, icosphere_obj,
-                                        quad_obj)
-    sd = {"environment": [[0.2, 0.2, 0.3], [0.8, 0.9, 1.0]],
-          "cameraPos": [0.0, 0.4, 2.2], "cameraDir": [0.0, -0.18, -0.98],
-          "samples": 8,
-          "props": [{"path": "floor.obj", "scale": 6.0,
-                     "translate": [0, -0.5, 0], "diffuse": [0.6, 0.6, 0.6],
-                     "metallicRoughness": [0.0, 0.6, 0.0],
-                     "normals": "flat"}],
-          "animated_props": [{"path": "sphere.obj", "scale": 0.4,
-                              "translate": translate,
-                              "rotate": [{"axis": [0, 1, 0],
-                                          "angle": angle}],
-                              "diffuse": [0.9, 0.4, 0.3],
-                              "metallicRoughness": [0.0, 0.3, 0.0],
-                              "normals": "smooth"}]}
-    loader = DictAssetLoader(texts={"sphere.obj": icosphere_obj(2),
-                                    "floor.obj": quad_obj()})
-    return sd, load_scene_dict(sd, loader)
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CASES))
-def test_graphed_step_follows_swaps_on_card(cuda_device, case, tmp_path):
+@pytest.mark.parametrize("case,lit", [
+    pytest.param("bunny8_main", False, id="bunny8_main"),
+    pytest.param("bunny4_cli", False, id="bunny4_cli"),
+    pytest.param("bunny8_main", True, id="bunny8_main-light_nee")])
+def test_graphed_step_follows_swaps_on_card(cuda_device, case, lit,
+                                            tmp_path):
     """A camera change, an arrays swap by refit (same shapes: copied, not
     captured again), reset() and load_checkpoint(), each followed by
-    replays bit-equal to eager steps."""
-    from fspt_tpu_torch.scene.refit import (aux_to, build_refit_aux,
-                                            delta_affines, refit_arrays)
-    from fspt_tpu_torch.scene.schema import (_prop_defaults,
-                                             merge_scene_props)
-    base_sd, base = _refit_scene([0.0, 0.0, 0.0])
-    moved_sd, _ = _refit_scene([0.35, 0.15, -0.2], angle=0.8)
-    cfg = _card_cfg(case, 64)
+    replays bit-equal to eager steps; the capture builds the scene's
+    tables once, the swap once more, and nothing else does."""
+    base_sd, base = _refit_scene([0.0, 0.0, 0.0], lit=lit)
+    cfg = _card_cfg(case, 64, use_light_nee=lit)
     g, e = (Renderer(base, cfg, device="cuda") for _ in range(2))
     g.step()
+    built = g.stats["table_builds"]
     g.step()
     _eager(e, 2)
     _same(g, e)
+    assert g.stats["table_builds"] - built == 1         # the capture's
     g.camera = e.camera = _moved(g.camera)
     _same(g.step(), _eager(e))
-    aux = aux_to(build_refit_aux(base), "cuda")
-    mats, trans = delta_affines(
-        [_prop_defaults(p) for p in merge_scene_props(base_sd)],
-        [_prop_defaults(p) for p in merge_scene_props(moved_sd)])
-    g.arrays = e.arrays = refit_arrays(g.arrays, base.meta, aux, mats, trans)
+    assert g.stats["table_builds"] - built == 1
+    g.arrays = e.arrays = _refitted(g.arrays, base_sd, base, lit=lit)
     g.reset()
     e.reset()
     _same(g.step(2), _eager(e, 2))
+    assert g.stats["table_builds"] - built == 2         # the refresh's
     path = str(tmp_path / "ckpt.npz")
     g.save_checkpoint(path)
     g.step()
@@ -527,7 +614,10 @@ def test_graphed_step_follows_swaps_on_card(cuda_device, case, tmp_path):
     g.load_checkpoint(path)
     e.load_checkpoint(path)
     _same(g.step(), _eager(e))
+    assert g.stats["table_builds"] - built == 2
     assert g.stats["graph_captures"] == 1
+    if lit:
+        assert float(g.rays[1]) > 0
 
 
 @pytest.mark.cuda

@@ -15,6 +15,10 @@ The batched case runs under the no-RR schedule (1, 4) of
 tests/test_compact.py at 64x64 on the subdivision-1 textured scene: RR
 would make the survivors depend on the sort's tie order, which is exact
 on neither side.
+
+The port's own contract for the scene's tables (no JAX call): a trace
+given them built ahead (scene_tables, as the graphed step passes them)
+equals one that builds them itself, bit for bit.
 """
 
 import dataclasses
@@ -37,7 +41,9 @@ from fspt_tpu_torch.core import integrator as tint
 from fspt_tpu_torch.core import rng as trng
 from fspt_tpu_torch.core import vec
 from fspt_tpu_torch.core.camera import generate_rays as trays
+from fspt_tpu_torch.runtime.renderer import _leaves
 from fspt_tpu_torch.scene.schema import scene_to_torch
+from fspt_tpu_torch.testing import make_test_scene as make_torch_scene
 
 torch.set_num_threads(1)
 
@@ -169,3 +175,46 @@ def test_off_slice_configs_raise(scene, kw):
     with pytest.raises(ValueError, match="intersector|mode|max_iters|wide"):
         tint.trace_paths(arrays, RenderConfig(width=8, height=8, **kw),
                          meta, o, d, trng.key(0))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("nee", [False, True])
+def test_prebuilt_tables_bit_equal(nee, packed):
+    """trace_paths and trace_paths_batched given the scene's tables built
+    ahead equal the same traces building them inside, bit for bit, in
+    radiance and every count, with light NEE on and off and with the
+    packed and the per-map atlas path; given them, they build nothing."""
+    s = make_torch_scene(subdivisions=1, textured=True, emissive_sphere=True)
+    arrays = s.to_torch("cpu")
+    cfg = RenderConfig(width=32, height=32, bounces=3, intersector="split",
+                       use_light_nee=nee, packed_textures=packed,
+                       **dict(PROD, batch_spp=2))
+    n = 32 * 32
+    key = trng.sample_key(trng.key(5), 3)
+    rays = [trays(torch.tensor(s.camera.position),
+                  torch.tensor(s.camera.direction), 0.5, 1e6, 0.0, (32, 32),
+                  trng.stream_uniforms(trng.fold_in(key, k), 0, (4, n)))
+            for k in range(2)]
+    origin = vec.cat([o for o, _ in rays])
+    direction = vec.cat([d for _, d in rays])
+
+    def traces(**kw):
+        return (tint.trace_paths(arrays, cfg, s.meta, *rays[0],
+                                 trng.fold_in(key, 0), return_stats=True,
+                                 **kw),
+                tint.trace_paths_batched(arrays, cfg, s.meta, origin,
+                                         direction, key, n_per=n,
+                                         return_stats=True, **kw))
+
+    tables = tint.scene_tables(arrays, cfg, s.meta)
+    assert (tables.tex.mat_tex is None) != packed
+    builds = tint.scene_tables.launches
+    got = traces(tables=tables)
+    assert tint.scene_tables.launches == builds
+    want = traces()
+    assert tint.scene_tables.launches == builds + 2
+    for g, w in zip(_leaves(got), _leaves(want)):
+        assert (g is None) == (w is None)
+        assert g is None or torch.equal(g, w)
+    light = got[1][1].light
+    assert (light is not None and float(light.sum()) > 0) == nee

@@ -141,40 +141,43 @@ def sorted_intersect(scene, cfg: RenderConfig, meta, origin: V3,
     """Traversal with coherence sorting of the launch: rays sorted by
     (origin Morton code << 3 | direction octant), inactive lanes last, hits
     un-permuted afterwards.  With cfg.sort_state the path state is already
-    in Morton order (_sort_state), so launches go out unsorted."""
+    in Morton order (_sort_state), so launches go out unsorted.  A sorted
+    launch is one `fspt.raysort` span, the key to the un-permute, with its
+    `fspt.traverse` inside."""
     if (cfg.intersector not in ("packet", "walk", "split")
             or not cfg.sort_rays or cfg.sort_state):
         return intersect(scene, cfg, meta, origin, direction, tmax=tmax,
                          any_hit=any_hit)
-    n = origin.x.shape[0]
-    octant = ((direction.x < 0).to(torch.int32) * 4
-              + (direction.y < 0).to(torch.int32) * 2
-              + (direction.z < 0).to(torch.int32))
-    wmin, extent = _scene_box(scene)
-    morton = _morton21((origin.x - wmin[0]) / extent[0],
-                       (origin.y - wmin[1]) / extent[1],
-                       (origin.z - wmin[2]) / extent[2])
-    key = torch.where(active, (morton << 3) | octant,
-                      torch.full_like(morton, 1 << 30))
-    if tmax is None:
-        tmax = torch.full((n,), cfg.max_t, dtype=torch.float32,
-                          device=origin.x.device)
-    perm = torch.sort(key.detach(), stable=True).indices        # JAX :168
-    rays = torch.stack([origin.x, origin.y, origin.z, direction.x,
-                        direction.y, direction.z, tmax],
-                       dim=-1).detach()[perm]                    # JAX :169
-    hit = intersect(scene, cfg, meta,
-                    V3(rays[:, 0], rays[:, 1], rays[:, 2]),
-                    V3(rays[:, 3], rays[:, 4], rays[:, 5]),
-                    tmax=rays[:, 6], any_hit=any_hit)
-    # slot/visits ride the f32 rows exactly (values < 2^24)
-    packed = torch.stack([hit.t, hit.slot.to(torch.float32), hit.u, hit.v,
-                          hit.visits.to(torch.float32)], dim=-1)
-    out = torch.zeros_like(packed)
-    out[perm] = packed
-    return PacketHit(t=out[:, 0], slot=out[:, 1].to(torch.int32),
-                     u=out[:, 2], v=out[:, 3],
-                     visits=out[:, 4].to(torch.int32))
+    with span("raysort"):
+        n = origin.x.shape[0]
+        octant = ((direction.x < 0).to(torch.int32) * 4
+                  + (direction.y < 0).to(torch.int32) * 2
+                  + (direction.z < 0).to(torch.int32))
+        wmin, extent = _scene_box(scene)
+        morton = _morton21((origin.x - wmin[0]) / extent[0],
+                           (origin.y - wmin[1]) / extent[1],
+                           (origin.z - wmin[2]) / extent[2])
+        key = torch.where(active, (morton << 3) | octant,
+                          torch.full_like(morton, 1 << 30))
+        if tmax is None:
+            tmax = torch.full((n,), cfg.max_t, dtype=torch.float32,
+                              device=origin.x.device)
+        perm = torch.sort(key.detach(), stable=True).indices    # JAX :168
+        rays = torch.stack([origin.x, origin.y, origin.z, direction.x,
+                            direction.y, direction.z, tmax],
+                           dim=-1).detach()[perm]                # JAX :169
+        hit = intersect(scene, cfg, meta,
+                        V3(rays[:, 0], rays[:, 1], rays[:, 2]),
+                        V3(rays[:, 3], rays[:, 4], rays[:, 5]),
+                        tmax=rays[:, 6], any_hit=any_hit)
+        # slot/visits ride the f32 rows exactly (values < 2^24)
+        packed = torch.stack([hit.t, hit.slot.to(torch.float32), hit.u,
+                              hit.v, hit.visits.to(torch.float32)], dim=-1)
+        out = torch.zeros_like(packed)
+        out[perm] = packed
+        return PacketHit(t=out[:, 0], slot=out[:, 1].to(torch.int32),
+                         u=out[:, 2], v=out[:, 3],
+                         visits=out[:, 4].to(torch.int32))
 
 
 def _intersect_brute(scene, cfg, origin: V3, direction: V3,

@@ -124,21 +124,38 @@ def error_flag(device) -> torch.Tensor:
     return flag
 
 
+def _capturing(device) -> bool:
+    """Whether `device`'s current stream captures a CUDA graph (a CPU
+    device never does)."""
+    if torch.device(device).type != "cuda":
+        return False
+    with torch.cuda.device(device):
+        return torch.cuda.is_current_stream_capturing()
+
+
 def count_launch(counter, device):
     """Count one launch of a traversal kernel (or of other counted device
     work: ops/pcg4d.py, core/integrator.py scene_tables) on `device`'s
     current stream: in `counter.launches`, or, while that stream captures
     a CUDA graph, in `counter.captured` (the graph's replays launch it;
-    the replays add to `launches`, runtime/renderer.py StepGraph).  A CPU
-    device never captures."""
-    capturing = False
-    if torch.device(device).type == "cuda":
-        with torch.cuda.device(device):
-            capturing = torch.cuda.is_current_stream_capturing()
-    if capturing:
+    the replays add to `launches`, runtime/renderer.py StepGraph)."""
+    if _capturing(device):
         counter.captured += 1
     else:
         counter.launches += 1
+
+
+def count_lanes(counter, device, n: int):
+    """Count the n rays handed to one call of a traversal op on `device`:
+    in `counter.lanes`, or, while its stream captures a CUDA graph, in
+    `counter.lanes_captured` (each replay adds them to `lanes`,
+    runtime/renderer.py StepGraph).  Known on the host from the rays'
+    shape, so nothing is read from the device.  Unlike `launches`, a call
+    on the CPU (the plain version) counts too."""
+    if _capturing(device):
+        counter.lanes_captured += n
+    else:
+        counter.lanes += n
 
 
 def check_stack_overflow(device):
@@ -296,10 +313,12 @@ def packet_traverse(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     (`fspt_walk1` of csrc/walk1.cu, a cluster launch) on the current stream
-    or raise; every launch adds one to `packet_traverse.launches`."""
+    or raise; every launch adds one to `packet_traverse.launches`, and
+    every call its rays to `packet_traverse.lanes` (`count_lanes`)."""
     from fspt_tpu_torch.ops.traverse3 import launch_walk
     tmax, planes, dev = ray_planes("packet_traverse", nodes, leaves, origin,
                                    direction, tmax)
+    count_lanes(packet_traverse, dev, planes[0].shape[0])
     if dev.type == "cpu":
         return packet_traverse_reference(
             nodes, leaves, origin, direction, tmax, leaf_size=leaf_size,
@@ -312,3 +331,5 @@ def packet_traverse(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
 packet_traverse.launches = 0
 packet_traverse.captured = 0
+packet_traverse.lanes = 0
+packet_traverse.lanes_captured = 0

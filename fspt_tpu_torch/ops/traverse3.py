@@ -59,8 +59,9 @@ from fspt_tpu_torch.core.vec import V3
 from fspt_tpu_torch.ops import _build
 from fspt_tpu_torch.ops.traverse import (SENTINEL, PacketHit,
                                          check_kernel_inputs, check_tables,
-                                         count_launch, error_flag, ray_planes,
-                                         safe_inv, tally_visits)
+                                         count_lanes, count_launch,
+                                         error_flag, ray_planes, safe_inv,
+                                         tally_visits)
 
 GROUP = 128            # rays per v3 walk
 STACK_CAP = 4096       # shared-memory stack entries the CUDA kernel takes
@@ -207,31 +208,38 @@ def group_walk_reference(nodes, leaves, origin: V3, direction: V3, tmax=None,
             oxr, oyr, ozr = ox[r], oy[r], oz[r]
             dxr, dyr, dzr = dx[r], dy[r], dz[r]
             bt_r, bs_r, bu_r, bv_r = bt[r], bs[r], bu[r], bv[r]
-            slot_base = (leaf * leaf_size).to(i32)[:, None]
-            for j in range(leaf_size):
-                e = [row[:, 9 * j + i, None] for i in range(9)]
-                px = dyr * e[8] - dzr * e[7]
-                py = dzr * e[6] - dxr * e[8]
-                pz = dxr * e[7] - dyr * e[6]
-                det = e[3] * px + e[4] * py + e[5] * pz
-                inv = 1.0 / torch.where(torch.abs(det) < 1e-6,
-                                        torch.ones_like(det), det)
-                tx = oxr - e[0]
-                ty = oyr - e[1]
-                tz = ozr - e[2]
-                uu = (tx * px + ty * py + tz * pz) * inv
-                qx = ty * e[5] - tz * e[4]
-                qy = tz * e[3] - tx * e[5]
-                qz = tx * e[4] - ty * e[3]
-                ww = (dxr * qx + dyr * qy + dzr * qz) * inv
-                tt = (e[6] * qx + e[7] * qy + e[8] * qz) * inv
-                ok = ((torch.abs(det) >= 1e-6)
-                      & (uu >= 0.0) & (uu <= 1.0) & (ww >= 0.0)
-                      & (uu + ww <= 1.0) & (tt > 1e-6) & (tt < bt_r))
-                bt_r = torch.where(ok, tt, bt_r)
-                bs_r = torch.where(ok, slot_base + j, bs_r)
-                bu_r = torch.where(ok, uu, bu_r)
-                bv_r = torch.where(ok, ww, bv_r)
+            # every triangle of the leaf at once, (Gl, group, leaf_size);
+            # the kernel's in-order `t < best t` keeps the first of the
+            # nearest hits, which is argmin's pick
+            e = row[:, :9 * leaf_size].reshape(-1, 1, leaf_size, 9)
+            e = [e[..., i] for i in range(9)]
+            dxr, dyr, dzr = (a[:, :, None] for a in (dxr, dyr, dzr))
+            tx, ty, tz = (a[:, :, None] - b
+                          for a, b in zip((oxr, oyr, ozr), e[:3]))
+            px = dyr * e[8] - dzr * e[7]
+            py = dzr * e[6] - dxr * e[8]
+            pz = dxr * e[7] - dyr * e[6]
+            det = e[3] * px + e[4] * py + e[5] * pz
+            inv = 1.0 / torch.where(torch.abs(det) < 1e-6,
+                                    torch.ones_like(det), det)
+            uu = (tx * px + ty * py + tz * pz) * inv
+            qx = ty * e[5] - tz * e[4]
+            qy = tz * e[3] - tx * e[5]
+            qz = tx * e[4] - ty * e[3]
+            ww = (dxr * qx + dyr * qy + dzr * qz) * inv
+            tt = (e[6] * qx + e[7] * qy + e[8] * qz) * inv
+            ok = ((torch.abs(det) >= 1e-6)
+                  & (uu >= 0.0) & (uu <= 1.0) & (ww >= 0.0)
+                  & (uu + ww <= 1.0) & (tt > 1e-6) & (tt < bt_r[..., None]))
+            j = torch.argmin(torch.where(ok, tt, torch.inf), -1,
+                             keepdim=True)
+            hit = ok.any(-1)
+            pick = lambda a: torch.gather(a, -1, j)[..., 0]
+            bt_r = torch.where(hit, pick(tt), bt_r)
+            bs_r = torch.where(hit, (leaf * leaf_size).to(i32)[:, None]
+                               + j[..., 0].to(i32), bs_r)
+            bu_r = torch.where(hit, pick(uu), bu_r)
+            bv_r = torch.where(hit, pick(ww), bv_r)
             bt[r], bs[r], bu[r], bv[r] = bt_r, bs_r, bu_r, bv_r
             p0 = ptr[r] - 1
             cur[r] = stack[r, p0].long()
@@ -333,10 +341,12 @@ def packet_traverse3(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel on
     the current stream (asynchronously) or raise; every launch adds one to
-    `packet_traverse3.launches`."""
+    `packet_traverse3.launches`, and every call its rays to
+    `packet_traverse3.lanes` (ops/traverse.py `count_lanes`)."""
     _check_v3(table_hbm, lane_counts)
     tmax, planes, dev = ray_planes("packet_traverse3", nodes, leaves, origin,
                                    direction, tmax)
+    count_lanes(packet_traverse3, dev, planes[0].shape[0])
     if dev.type == "cpu":
         return packet_traverse3_reference(
             nodes, leaves, origin, direction, tmax, leaf_size=leaf_size,
@@ -353,3 +363,5 @@ def packet_traverse3(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
 packet_traverse3.launches = 0
 packet_traverse3.captured = 0
+packet_traverse3.lanes = 0
+packet_traverse3.lanes_captured = 0

@@ -57,8 +57,9 @@ from fspt_tpu_torch.ops import _build
 from fspt_tpu_torch.ops.traverse import (MAX_T, PacketHit,  # noqa: F401
                                          check_kernel_inputs,
                                          check_stack_overflow, check_tables,
-                                         count_launch, error_flag, ray_planes,
-                                         safe_inv, tally_visits)
+                                         count_lanes, count_launch,
+                                         error_flag, ray_planes, safe_inv,
+                                         tally_visits)
 
 WIDTHS = (8, 16)       # tree widths of ops/packing.py the kernel takes
 STACK_CAP = 256        # compile-time stack capacity of the CUDA kernel
@@ -244,10 +245,12 @@ def packet_traverse4(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel on
     the current stream (asynchronously) or raise; every launch adds one to
-    `packet_traverse4.launches`."""
+    `packet_traverse4.launches`, and every call its rays to
+    `packet_traverse4.lanes` (ops/traverse.py `count_lanes`)."""
     n = origin.x.shape[0]
     tmax, planes, dev = ray_planes("traverse4", nodes, leaves, origin,
                                    direction, tmax)
+    count_lanes(packet_traverse4, dev, n)
     if dev.type == "cpu":
         return packet_traverse4_reference(
             nodes, leaves, origin, direction, tmax, leaf_size=leaf_size,
@@ -263,3 +266,5 @@ def packet_traverse4(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
 packet_traverse4.launches = 0
 packet_traverse4.captured = 0
+packet_traverse4.lanes = 0
+packet_traverse4.lanes_captured = 0

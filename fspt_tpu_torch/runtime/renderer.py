@@ -200,6 +200,13 @@ def refresh_inputs(static: list, seen: list, leaves: list) -> Optional[bool]:
 # the launch counters a replay advances as the captured step did
 _COUNTERS = (packet_traverse4, packet_traverse3, packet_traverse,
              pcg4d_uniforms, scene_tables)
+# and the traversal ops' lane counters (ops/traverse.py count_lanes)
+_LANE_COUNTERS = (packet_traverse4, packet_traverse3, packet_traverse)
+
+
+def lanes_launched() -> int:
+    """The rays handed to the traversal ops so far, replays included."""
+    return sum(c.lanes for c in _LANE_COUNTERS)
 
 
 class StepGraph:
@@ -234,12 +241,15 @@ class StepGraph:
         # the wrappers count a captured launch apart (ops/traverse.py
         # count_launch); each replay launches it again
         before = [c.captured for c in _COUNTERS]
+        lanes = [c.lanes_captured for c in _LANE_COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: the viewer's event thread may use the card meanwhile
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.radiance, self.rays = self.run_body()
         self.launches = tuple(c.captured - b
                               for c, b in zip(_COUNTERS, before))
+        self.lanes = tuple(c.lanes_captured - b
+                           for c, b in zip(_LANE_COUNTERS, lanes))
         self.capture_s = time.perf_counter() - t0
 
     def holds(self, r: "Renderer") -> bool:
@@ -272,6 +282,8 @@ class StepGraph:
             self.graph.replay()
         for c, k in zip(_COUNTERS, self.launches):
             c.launches += k
+        for c, k in zip(_LANE_COUNTERS, self.lanes):
+            c.lanes += k
 
 
 # the batches still to come in a step call that repay a capture: one-shot
@@ -301,7 +313,8 @@ class Renderer:
         self.reset()
         self._stats = {"samples": 0, "seconds": 0.0, "rays": 0.0,
                        "light_rays": 0.0, "graph_captures": 0,
-                       "graph_replays": 0, "table_builds": 0}
+                       "graph_replays": 0, "table_builds": 0,
+                       "lanes_launched": 0}
         # on a card: the first sample batch runs eagerly (the warm-up), a
         # later one is captured as a CUDA graph (_graph_due), and replays
         # run every batch after it
@@ -357,7 +370,7 @@ class Renderer:
         capture, so that no later step waits for either.  Leaves the
         accumulation alone; nothing to do on the CPU or with a graph."""
         if self._graphs and self._graph is None:
-            builds = scene_tables.launches
+            builds, lanes = scene_tables.launches, lanes_launched()
             if not self._warm:
                 sample_step(self.arrays, self.cfg, self.scene.meta,
                             self.camera, self.accum, self.count, self.rays,
@@ -367,12 +380,13 @@ class Renderer:
                 self._warm = True
             self._capture()
             self._stats["table_builds"] += scene_tables.launches - builds
+            self._stats["lanes_launched"] += lanes_launched() - lanes
         return self
 
     @torch.no_grad()
     def step(self, num_batches: int = 1):
         t0 = time.perf_counter()
-        builds = scene_tables.launches
+        builds, lanes = scene_tables.launches, lanes_launched()
         first_call, self._stepped = not self._stepped, True
         with span("step"):
             for i in range(num_batches):
@@ -398,6 +412,7 @@ class Renderer:
         self._stats["light_rays"] += light - self._light_read
         self._rays_read, self._light_read = rays, light
         self._stats["table_builds"] += scene_tables.launches - builds
+        self._stats["lanes_launched"] += lanes_launched() - lanes
         return self
 
     def render(self, samples: Optional[int] = None):
@@ -512,7 +527,10 @@ class Renderer:
         # "rays" counts the active-lane rays traced, "light_rays" the light
         # shadow rays among them (0 without light NEE); "table_builds" the
         # builds of the scene's tables the steps ran: in every eager trace,
-        # once a capture or scene refresh of a graph, none in a replay
+        # once a capture or scene refresh of a graph, none in a replay;
+        # "lanes_launched" the rays the steps handed to the traversal
+        # ops, parked lanes included (host counts of the launches'
+        # shapes): without compaction, lane_rays_upper_bound
         n = self.cfg.width * self.cfg.height
         # upper bound: every launch's full lane count (primary + batched
         # scatter + env shadow, + light shadow when light NEE is on);

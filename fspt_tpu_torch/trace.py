@@ -18,6 +18,10 @@ The spans, each where its work happens:
                       the device alone and show no span
   fspt.traverse       core/integrator.py intersect (and the heatmap's
                       launch, and Renderer.autofocus's walk): one a launch
+  fspt.raysort        core/integrator.py sorted_intersect, where it sorts
+                      (sort_rays without sort_state, as the exact-replay
+                      estimator runs): the key, the sort, the row gather,
+                      the launch's fspt.traverse and the un-permute
   fspt.tables         core/integrator.py scene_tables: the material, env
                       and attribute tables, built in trace_paths and
                       trace_paths_batched where the caller passed none,

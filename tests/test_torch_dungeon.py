@@ -88,26 +88,29 @@ def small_assets(assets: dict) -> dict:
     return out
 
 
-def dungeon_bench(root, size, wavefront=True, small=True):
-    """The benchmark's data under `root`, the dungeon configuration at
-    size x size (where `small`, its assets at SMALL's parameters and SPP
-    samples a step, else its own; the wavefront batch on or off):
-    (manifest, cell)."""
+def dungeon_bench(root, size, wavefront=None, small=True, name=NAME):
+    """The benchmark's data under `root`, the dungeon configuration `name`
+    at size x size (where `small`, its assets at SMALL's parameters and SPP
+    samples a step, else its own; the wavefront batch on or off, or as the
+    configuration has it): (manifest, its progressive cell)."""
     bench = os.path.join(root, "fsptbench")
     for d in ("configs", "traffic", "checks", "metrics", "generators"):
         shutil.copytree(os.path.join(BENCH, d), os.path.join(bench, d),
                         dirs_exist_ok=True)
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
-    path = os.path.join(bench, "configs", f"{NAME}.json")
+    path = os.path.join(bench, "configs", f"{name}.json")
     with open(path) as f:
         cfg = json.load(f)
-    cfg["render"].update(width=size, height=size, wavefront_batch=wavefront)
+    cfg["render"].update(width=size, height=size)
+    if wavefront is not None:
+        cfg["render"]["wavefront_batch"] = wavefront
     if small:
         cfg["assets"] = small_assets(cfg["assets"])
         cfg["render"]["batch_spp"] = SPP
     with open(path, "w") as f:
         json.dump(cfg, f)
-    return Manifest(os.path.join(root, "BENCHMARK.json"), bench), CELL
+    return (Manifest(os.path.join(root, "BENCHMARK.json"), bench),
+            f"{name}.progressive")
 
 
 def light_weight_one(mp):

@@ -377,7 +377,7 @@ def body_graphs(monkeypatch):
 
     def capture(self):
         self.graph = _BodyGraph(self)
-        self.launches = (0, 0, 0)
+        self.launches = self.lanes = (0, 0, 0)
         captured.append(self)
     monkeypatch.setattr(StepGraph, "_capture", capture)
     return captured

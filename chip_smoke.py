@@ -34,7 +34,13 @@ Phases (one line each; any failure raises and exits non-zero):
      bit-equal on the primary rays; times of both; for walk3 a [shape]
      line per launch (per-group visits with p50/p99/max, node/leaf split,
      the bound, where the launch order's last block ends in visits against
-     an even share over 5 blocks an SM); for walk1 a [shape] line per
+     an even share over 5 blocks an SM, and from the kernel's work tally
+     the (ray, row) pairs its ray masks left to test, their share of the
+     group visits' 128 lanes and the bound of their tests); then walk3 on
+     the exact-replay cell's first sorted bounce launch (the dungeon of
+     fsptbench/configs/dungeon8_exact.json at 512x512, 3 x 262,144 lanes,
+     `dungeon_walk3`, ~1 minute with the scene): bit-equal as above, a
+     [shape] line, its time against both bounds; for walk1 a [shape] line per
      launch (per-packet visits with p50/p99/max, where the launch order's
      last packet ends against an even share over one block an SM, the
      bound, and the cycles a visit of the longest packet);
@@ -357,15 +363,35 @@ def inorder_makespan(visits, slots):
     return max(ends), sum(v) / slots
 
 
-def shape_walk3(label, hit, counts, bound, ms, group=128):
-    """The per-group visits of a walk3 launch, its bound, and how far the
-    launch order's longest groups stretch it (a launch ends when its last
-    group does)."""
+def walk3_bounds(hit, counts, tally, kw, table_rows, group=128):
+    """A walk3 launch's bound from its work tally: the child and triangle
+    tests of the (ray, row) pairs its ray masks left, and a row fetch a
+    group visit; and beside it the union's bound, every lane of a group
+    tested at every row its group visits (the plain version's tally, the
+    work of the first design).  Returns (bound, union)."""
+    from fspt_tpu_torch.ops.traverse import traversal_bound
+    n, tw, ls = hit.t.numel(), kw.get("tree_width", 8), kw["leaf_size"]
+    bound = traversal_bound(n, tw, ls, table_rows, tally["visits"] * group,
+                            0, child_tests=tally["children"],
+                            tri_tests=tally["triangles"], group=group)
+    return bound, launch_bound(counts, n, tw, ls, table_rows, group=group)
+
+
+def shape_walk3(label, hit, counts, tally, bound, union, ms, group=128):
+    """The per-group visits of a walk3 launch and how far the launch
+    order's longest groups stretch it (a launch ends when its last group
+    does); the (ray, row) pairs its ray masks left to test, as a share of
+    its group visits' 128 lanes; its bound (`walk3_bounds`) and the
+    union's."""
     import torch
     g = hit.visits[::group]
     if counts["node"] + counts["leaf"] != int(g.sum()) * group:
         raise AssertionError(f"{label}: node + leaf visits differ from "
                              "the kernel's visits")
+    if tally["visits"] != int(g.sum()):
+        raise AssertionError(f"{label}: the work tally counts "
+                             f"{tally['visits']} group visits, the kernel's "
+                             f"visits {int(g.sum())}")
     q = torch.quantile(g.float(), torch.tensor([0.5, 0.99], device=g.device))
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
     last, even = inorder_makespan(g.cpu(), sms * 5)
@@ -375,8 +401,53 @@ def shape_walk3(label, hit, counts, bound, ms, group=128):
         last_block_ends_at_visits=last, even_share_visits=f"{even:.0f}",
         node_group_visits=counts["node"] // group,
         leaf_group_visits=counts["leaf"] // group, **tested(counts),
+        tested_pairs=tally["pairs"],
+        pair_share=f"{tally['pairs'] / (int(g.sum()) * group):.4f}",
+        rays_per_visit=f"{tally['pairs'] / int(g.sum()):.2f}",
         **bound_fields(bound),
-        share_of_bound=f"{bound['bound_ms'] / ms:.4f}")
+        share_of_bound=f"{bound['bound_ms'] / ms:.4f}",
+        union_bound_ms=f"{union['bound_ms']:.5f}",
+        union_bound_by=union["bound_by"],
+        share_of_union_bound=f"{union['bound_ms'] / ms:.4f}")
+
+
+def dungeon_walk3():
+    """walk3 on the exact-replay cell's first sorted bounce launch
+    (fsptbench/configs/dungeon8_exact.json at 512x512: 3 x 262,144 lanes
+    over ~400,000 triangles), the cell's own launch: the kernel against
+    its plain version (`check_launch`), its [shape] line with the work
+    tally, and its time against its bound and the union's (`walk3_bounds`).
+    Returns (ms, plain ms, max |diff|, bound, union)."""
+    from fsptbench.manifest import Manifest
+    from fsptbench.run import Run
+    from fspt_tpu_torch.ops.traverse import capture_launches
+    from fspt_tpu_torch.core import integrator
+    from fspt_tpu_torch.ops.traverse3 import (packet_traverse3,
+                                              packet_traverse3_reference,
+                                              tally_growth)
+    from fspt_tpu_torch.runtime.renderer import Renderer
+    t0 = time.perf_counter()
+    run = Run(Manifest(), "dungeon8_exact.progressive", 2_300_000_001, 1.0,
+              "cuda")
+    run.build()
+    r = Renderer(run.scene, run.cfg, device="cuda")
+    a = r.arrays
+    table_rows = a.pk_nodes.shape[0] + a.pk_leaves.shape[0]
+    args, kw = capture_launches(integrator, "packet_traverse3", r.step)[1]
+    say("dungeon", cell="dungeon8_exact.progressive",
+        triangles=run.scene.num_triangles, node_rows=a.pk_nodes.shape[0],
+        leaf_rows=a.pk_leaves.shape[0], lanes=args[2].x.shape[0],
+        stack_depth=kw["stack_depth"],
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    counts = {}
+    label = "walk3 dungeon bounce0"
+    ms, plain_ms, err, hit = check_launch(
+        label, packet_traverse3, packet_traverse3_reference, args, kw,
+        counts=counts)
+    tally = tally_growth(lambda: packet_traverse3(*args, **kw))
+    bound, union = walk3_bounds(hit, counts, tally, kw, table_rows)
+    shape_walk3(label, hit, counts, tally, bound, union, ms)
+    return ms, plain_ms, err, bound, union
 
 
 def shape_walk1(label, hit, counts, bound, ms, mhz):
@@ -542,24 +613,6 @@ def check_launch(label, fn, ref_fn, args, kw, base_hit=None, lanes=False,
     return ms, plain_ms, err, hit
 
 
-def capture_launches(module, name, run):
-    """The (args, kwargs) of every call that `run()` makes to module.<name>,
-    which still runs."""
-    real = getattr(module, name)
-    calls = []
-
-    def capture(*args, **kw):
-        calls.append((args, kw))
-        return real(*args, **kw)
-
-    setattr(module, name, capture)
-    try:
-        run()
-    finally:
-        setattr(module, name, real)
-    return calls
-
-
 def timed_steps(r, steps, counter):
     """Reset `counter.launches`, run `steps` steps, read it back; returns
     (launches, samples, seconds, honest rays)."""
@@ -596,6 +649,7 @@ TRAIN_LR = 1.0
 def phase_train(scene, smi):
     """16. train (see the module docstring).  Raises on a failure."""
     import numpy as np
+    from fspt_tpu_torch.ops.traverse import capture_launches
     import torch
     from fspt_tpu_torch import RenderConfig
     from fspt_tpu_torch.bench import bench_config
@@ -832,6 +886,7 @@ def phase_refit(cfg, smi):
     import shutil
 
     import numpy as np
+    from fspt_tpu_torch.ops.traverse import capture_launches
     import torch
     from fspt_tpu_torch.core import integrator, rng
     from fspt_tpu_torch.core.camera import generate_rays
@@ -1498,6 +1553,7 @@ def phase_dist(scene, smi):
     import tempfile
 
     import numpy as np
+    from fspt_tpu_torch.ops.traverse import capture_launches
     import torch
     from fspt_tpu_torch import RenderConfig, Renderer
     from fspt_tpu_torch.core import integrator
@@ -1808,6 +1864,7 @@ def main(kernels_only=False):
                          "script; run it from a checkout of the repository")
     sys.path.insert(0, HERE)
     import numpy as np
+    from fspt_tpu_torch.ops.traverse import capture_launches
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; "
@@ -1870,7 +1927,8 @@ def main(kernels_only=False):
                                              real_triangles,
                                              traversal_bound)
     from fspt_tpu_torch.ops.traverse3 import (packet_traverse3,
-                                              packet_traverse3_reference)
+                                              packet_traverse3_reference,
+                                              tally_growth)
     from fspt_tpu_torch.ops.traverse4 import (packet_traverse4,
                                               packet_traverse4_reference)
     from fspt_tpu_torch.testing import (icosphere_obj,
@@ -1913,7 +1971,7 @@ def main(kernels_only=False):
 
     table_rows = a.pk_nodes.shape[0] + a.pk_leaves.shape[0]
 
-    rows, bounds = {}, {}
+    rows, bounds, unions = {}, {}, {}
     max_err = {"traverse4": 0.0, "walk3": 0.0, "walk1": 0.0}
     for label, (args, kw) in (("primary", captured[0]),
                               ("bounce0", captured[1])):
@@ -1994,11 +2052,15 @@ def main(kernels_only=False):
             args, kw, lanes=label == "primary", counts=counts)
         rows[("walk3", label)] = (ms, plain_ms)
         max_err["walk3"] = max(max_err["walk3"], err)
-        bound = launch_bound(counts, hit.t.numel(), kw.get("tree_width", 8),
-                             kw["leaf_size"], table_rows,
-                             group=traverse3.GROUP)
-        bounds[("walk3", label)] = bound
-        shape_walk3(f"walk3 {label}", hit, counts, bound, ms)
+        tally = tally_growth(lambda: packet_traverse3(*args, **kw))
+        bounds[("walk3", label)], unions[label] = walk3_bounds(
+            hit, counts, tally, kw, table_rows, group=traverse3.GROUP)
+        shape_walk3(f"walk3 {label}", hit, counts, tally,
+                    bounds[("walk3", label)], unions[label], ms)
+    (ms, plain_ms, err, bounds[("walk3", "dungeon")],
+     unions["dungeon"]) = dungeon_walk3()
+    rows[("walk3", "dungeon")] = (ms, plain_ms)
+    max_err["walk3"] = max(max_err["walk3"], err)
     # walk1: the primary rays and the bounce-0 launch of a "packet" step
     pcfg = RenderConfig(width=size, height=size, bounces=8,
                         extra_refraction_iters=0, batch_spp=1,
@@ -2414,6 +2476,13 @@ def main(kernels_only=False):
         {**row("walk3", "fspt_tpu_torch/csrc/walk.cu",
                "fspt_tpu/ops/traverse3.py:64", walk_launches,
                per_step(walk_cfg)),
+         "dungeon_bounce0_ms": rows[("walk3", "dungeon")][0],
+         "dungeon_bounce0_plain_ms": rows[("walk3", "dungeon")][1],
+         "dungeon_bounce0_bound_ms": bounds[("walk3", "dungeon")]["bound_ms"],
+         "dungeon_bounce0_bound_by": bounds[("walk3", "dungeon")]["bound_by"],
+         "union_bound_ms": unions["bounce0"]["bound_ms"],
+         "primary_union_bound_ms": unions["primary"]["bound_ms"],
+         "dungeon_bounce0_union_bound_ms": unions["dungeon"]["bound_ms"],
          "dist_launches_per_step": dist_walk_launches,
          "perf_phase_launches": phase_launches["walk3"]},
         row("walk1", "fspt_tpu_torch/csrc/walk1.cu",

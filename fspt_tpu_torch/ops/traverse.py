@@ -174,6 +174,25 @@ def check_stack_overflow(device):
             "backstop")
 
 
+def capture_launches(module, name, run):
+    """The (args, kwargs) of every call that `run()` makes to module.<name>
+    (a kernel wrapper as the integrator calls it), which still runs: the
+    launches a measurement or a test replays."""
+    real = getattr(module, name)
+    calls = []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, capture)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
 # ---- the least time a traversal launch could take on one H100 -------------
 
 H100_BYTES_PER_S = 3.35e12     # published HBM3 rate of the SXM card

@@ -32,8 +32,28 @@ group walk ONE shared node sequence with one shared stack:
 `packet_traverse3` dispatches on the tables' device: the plain version
 (`packet_traverse3_reference`, a torch loop vectorised over groups) for
 CPU tensors; for CUDA tensors the kernel `fspt_walk3` of csrc/walk.cu (one
-thread block per group), or an exception.  The two follow the same visit
-order and float32 arithmetic operation for operation and agree bit for bit.
+warp per group), or an exception.  The two follow the same visit order and
+float32 arithmetic operation for operation and agree bit for bit.
+
+The kernel tests at each row only the rays that wanted it: every entry of
+its stack carries the mask of the rays whose own box test passed for it
+(the root's, every ray), and a ray outside a node's mask is not tested
+there and counts 0 children.  That is exact wherever a child's box
+contains every box of that child's own row: a ray that failed the parent's
+slab test fails every descendant's, since rounded (plane - o) * inv is
+monotone in the plane and the ray's best t only falls.  The packed tables
+are built (ops/packing.py) and refit (scene/refit.py) as min/max unions,
+so the nesting holds for them; tests/test_torch_walk.py checks it exactly
+and holds a plain emulation of the masks to `group_walk_reference` bit for
+bit.  At a leaf the kernel runs Moller-Trumbore for the rays of the leaf's
+mask alone: it could differ from this version only for a hit that lies
+outside its leaf's box by rounding (a ray whose slab test of the leaf
+failed, with a triangle's t below its best t).  On the card that case
+showed in 2 of 48.5 million lanes of the exact-replay cell's launches
+(PERF.md): hits just outside a box, on a seam between two leaves, which a
+ray's own walk (ops/traverse4.py) does not take either.
+What the masks leave to test is counted on the card (`work_tally`:
+(ray, row) pairs, group visits, and the child and triangle tests).
 
 Deviations from the JAX kernel:
   * `table_hbm` is accepted and changes nothing: the tables are in device
@@ -289,19 +309,54 @@ WALK_ARGTYPES = (
     #                            any_hit, lane_counts
     + [_F] * 6                 # t, slot, u, v, visits, error flag
     + [_F])                    # stream
+# fspt_walk3 takes the work tally after the error flag
+WALK3_ARGTYPES = WALK_ARGTYPES[:-1] + [_F, _F]
+TALLY = ("pairs", "visits", "children", "triangles")
+
+_tallies = {}
+
+
+def work_tally(device) -> torch.Tensor:
+    """The per-device int64 counts that csrc/walk.cu adds to, one atomic
+    add a block: [0] the (ray, row) pairs its visits tested (a visit tests
+    the rays of its row's mask), [1] its group visits, [2] the (ray, valid
+    child) box tests and [3] the (ray, real triangle) tests among those
+    pairs (TALLY names them).  No launch resets it: read it before and
+    after the launches to count, after a synchronise and off the hot path
+    (a read is a device read).  The plain version counts nothing here."""
+    key = torch.device(device).index
+    if key is None:
+        key = torch.cuda.current_device()
+    tally = _tallies.get(key)
+    if tally is None:
+        tally = torch.zeros(len(TALLY), dtype=torch.int64,
+                            device=f"cuda:{key}")
+        _tallies[key] = tally
+    return tally
+
+
+def tally_growth(run, device="cuda") -> dict:
+    """The growth of `device`'s `work_tally` over the walk3 launches that
+    run() makes, by TALLY name (synchronises before and after)."""
+    torch.cuda.synchronize(device)
+    before = work_tally(device).clone()
+    run()
+    torch.cuda.synchronize(device)
+    return dict(zip(TALLY, (work_tally(device) - before).tolist()))
 
 
 def load_walk() -> ctypes.CDLL:
     """The group-walk kernel library (csrc/walk.cu), built on first call."""
-    return _build.load("walk", {"fspt_walk3": WALK_ARGTYPES})
+    return _build.load("walk", {"fspt_walk3": WALK3_ARGTYPES})
 
 
 def launch_walk(name, fn_name, counter, nodes, leaves, planes, *, leaf_size,
                 any_hit, stack_depth, tree_width, lane_counts,
-                load=load_walk) -> PacketHit:
+                load=load_walk, extra=()) -> PacketHit:
     """Launch `fn_name` of the library `load()` returns (csrc/walk.cu's
     unless told otherwise) on the current stream and add one to
-    `counter.launches`; raise on a refused launch."""
+    `counter.launches`; raise on a refused launch.  `extra`: the pointers
+    the kernel takes after the error flag (fspt_walk3: its work tally)."""
     n = planes[0].shape[0]
     check_tables(name, nodes, leaves, leaf_size, stack_depth)
     check_kernel_inputs(name, nodes, leaves, planes, n)
@@ -324,6 +379,7 @@ def launch_walk(name, fn_name, counter, nodes, leaves, planes, *, leaf_size,
             leaves.shape[0], *(x.data_ptr() for x in planes), n, leaf_size,
             stack_depth, tree_width, int(any_hit), int(lane_counts),
             *(x.data_ptr() for x in hit), flag.data_ptr(),
+            *extra,
             ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.fspt_cuda_error_string(err).decode()
@@ -341,7 +397,8 @@ def packet_traverse3(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel on
     the current stream (asynchronously) or raise; every launch adds one to
-    `packet_traverse3.launches`, and every call its rays to
+    `packet_traverse3.launches` and its work to the device's `work_tally`,
+    and every call its rays to
     `packet_traverse3.lanes` (ops/traverse.py `count_lanes`)."""
     _check_v3(table_hbm, lane_counts)
     tmax, planes, dev = ray_planes("packet_traverse3", nodes, leaves, origin,
@@ -358,7 +415,8 @@ def packet_traverse3(nodes, leaves, origin: V3, direction: V3, tmax=None, *,
     return launch_walk("packet_traverse3", "fspt_walk3", packet_traverse3,
                        nodes, leaves, planes, leaf_size=leaf_size,
                        any_hit=any_hit, stack_depth=stack_depth,
-                       tree_width=tree_width, lane_counts=lane_counts)
+                       tree_width=tree_width, lane_counts=lane_counts,
+                       extra=(work_tally(dev).data_ptr(),))
 
 
 packet_traverse3.launches = 0

@@ -739,3 +739,395 @@ def test_cuda_kernel_reciprocal_sweep_bit_exact_vs_plain(cuda_device, impl,
     assert (ref.slot >= 0).sum() > 6000
     for f in ours._fields:
         assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+
+
+# ---- walk3's ray masks (csrc/walk.cu) -------------------------------------
+# The kernel tests at each row only the rays that wanted it: every entry of
+# the group's stack carries the mask of the rays whose own box test passed
+# for it (the root's, every ray), and a visit runs the box tests of a node,
+# or Moller-Trumbore over a leaf, for those rays alone.  That changes no
+# output wherever a child's box contains every box of the child's own row:
+# a ray that failed the parent's slab test fails every descendant's, since
+# rounded (plane - o) * inv is monotone in the plane and the ray's best t
+# only falls.  The packed tables are built and refit as min/max unions, so
+# the nesting holds for them, compared exactly below.  `_mask_walk` is the
+# plain version (ops/traverse3.py `group_walk_reference`, the contract)
+# with the masks written out, and must equal it bit for bit; it also counts
+# the (ray, row) pairs the masks leave to test, which is what the kernel's
+# pair counter counts.
+
+def _nesting(nodes, width):
+    """(child boxes checked, descendant boxes outside their parent's box)
+    over a node table: for every valid child that is a node row, every
+    valid box of that row against the child's box in its parent's row."""
+    lo = nodes[:, :3 * width].reshape(-1, 3, width)
+    hi = nodes[:, 3 * width:6 * width].reshape(-1, 3, width)
+    link = nodes[:, 6 * width:7 * width]
+    parent, child = torch.nonzero(link >= 0, as_tuple=True)
+    row = link[parent, child].long()
+    sub = link[row] > -1.0e8                               # (k, width)
+    inside = ((lo[row] >= lo[parent, :, child][:, :, None])
+              & (hi[row] <= hi[parent, :, child][:, :, None])).all(1)
+    return int(sub.sum()), int((sub & ~inside).sum())
+
+
+def _mask_walk(nodes, leaves, origin, direction, tmax, *, tree_width,
+               leaf_size, any_hit, stack_depth, lane_counts=False):
+    """`group_walk_reference` (v3 rules, 128-ray groups) under the mask
+    rule: (PacketHit, counts, child tests that pass for a ray outside its
+    node's mask).  counts, as csrc/walk.cu's work tally names them
+    (ops/traverse3.py TALLY): the (ray, row) pairs tested, the group
+    visits, and the (ray, valid child) and (ray, real triangle) tests."""
+    from fspt_tpu_torch.ops.traverse import (SENTINEL, PacketHit,
+                                             real_triangles, safe_inv,
+                                             valid_children)
+    from fspt_tpu_torch.ops.traverse3 import _halving_sum
+    group, tw = GROUPS["walk"], tree_width
+    f32, i32 = torch.float32, torch.int32
+    dev = nodes.device
+    n = origin.x.shape[0]
+    ng = -(-n // group)
+    pad = ng * group - n
+
+    def field(a, value):
+        a = torch.cat([a, torch.full((pad,), value, dtype=f32, device=dev)])
+        return a.reshape(ng, group)
+
+    ox, oy, oz = (field(a, 1.0e9) for a in origin)
+    dx, dy, dz = (field(a, v) for a, v in zip(direction, (0.0, 1.0, 0.0)))
+    bt = field(tmax, 0.0).clone()
+    ix, iy, iz = safe_inv(dx), safe_inv(dy), safe_inv(dz)
+    sx, sy, sz = (_halving_sum(a) >= 0.0 for a in (dx, dy, dz))
+    bs = torch.full((ng, group), -1, dtype=i32, device=dev)
+    bu = torch.zeros((ng, group), dtype=f32, device=dev)
+    bv = torch.zeros((ng, group), dtype=f32, device=dev)
+    lane_vis = torch.ones((ng, group), dtype=i32, device=dev)
+    steps = torch.zeros(ng, dtype=i32, device=dev)
+    cur = torch.zeros(ng, dtype=torch.int64, device=dev)
+    ptr = torch.ones(ng, dtype=torch.int64, device=dev)
+    stack = torch.full((ng, stack_depth), SENTINEL, dtype=i32, device=dev)
+    held = torch.zeros((ng, stack_depth, group), dtype=torch.bool,
+                       device=dev)                 # the entries' masks
+    mask = torch.ones((ng, group), dtype=torch.bool, device=dev)
+    cols = torch.arange(tw, device=dev)
+    counts = dict.fromkeys(("pairs", "visits", "children", "triangles"), 0)
+    outside = 0
+    live = torch.arange(ng, device=dev)
+    while live.numel():
+        steps[live] += 1
+        c = cur[live]
+        at_node = c >= 0
+        m = mask[live].sum(1)
+        counts["pairs"] += int(m.sum())
+        counts["visits"] += live.numel()
+        r = live[at_node]
+        if r.numel():
+            row = nodes[c[at_node]]
+            counts["children"] += int((m[at_node]
+                                       * valid_children(row, tw)).sum())
+            lane = lambda k: row[:, None, k * tw:(k + 1) * tw]
+            o = lambda a: a[r][:, :, None]
+            t1x = (lane(0) - o(ox)) * o(ix)
+            t2x = (lane(3) - o(ox)) * o(ix)
+            t1y = (lane(1) - o(oy)) * o(iy)
+            t2y = (lane(4) - o(oy)) * o(iy)
+            t1z = (lane(2) - o(oz)) * o(iz)
+            t2z = (lane(5) - o(oz)) * o(iz)
+            tmin = torch.fmax(torch.fmax(torch.fmin(t1x, t2x),
+                                         torch.fmin(t1y, t2y)),
+                              torch.fmin(t1z, t2z))
+            tmx = torch.fmin(torch.fmin(torch.fmax(t1x, t2x),
+                                        torch.fmax(t1y, t2y)),
+                             torch.fmax(t1z, t2z))
+            links = row[:, 6 * tw:7 * tw]
+            box = ((tmx >= tmin) & (tmx > 0.0) & (tmin < o(bt))
+                   & (links > -1.0e8)[:, None, :])        # (Gn, group, tw)
+            outside += int((box & ~o(mask)).sum())
+            box &= o(mask)
+            lane_vis[r] += box.sum(-1, dtype=i32)
+            axis = row[:, 7 * tw]
+            fwd = torch.where(axis == 0.0, sx[r],
+                              torch.where(axis == 1.0, sy[r], sz[r]))
+            order = torch.where(fwd[:, None], tw - 1 - cols, cols)
+            kids = torch.gather(box, 2, order[:, None, :].expand_as(box))
+            want = kids.any(1)
+            link = torch.gather(links, 1, order).to(i32)
+            k = want.sum(1)
+            p0 = ptr[r]
+            pos = p0[:, None] + torch.cumsum(want, 1) - 1
+            top_ptr = p0 + k - 1
+            if int(top_ptr.max()) > stack_depth:
+                raise RuntimeError("stack overflow")
+            rr, cc = torch.nonzero(want & (pos < stack_depth), as_tuple=True)
+            stack[r[rr], pos[rr, cc]] = link[rr, cc]
+            held[r[rr], pos[rr, cc]] = kids[rr, :, cc]
+            last = torch.argmax(want * (cols + 1), 1)
+            g = torch.arange(r.numel(), device=dev)
+            pushed = k > 0
+            cur[r] = torch.where(pushed, link[g, last],
+                                 stack[r, p0 - 1]).long()
+            mask[r] = torch.where(pushed[:, None], kids[g, :, last],
+                                  held[r, p0 - 1])
+            ptr[r] = torch.where(pushed, top_ptr, p0 - 1)
+        r = live[~at_node]
+        if r.numel():
+            leaf = -c[~at_node] - 1
+            row = leaves[leaf]
+            counts["triangles"] += int((m[~at_node] * real_triangles(
+                row, leaf_size)).sum())
+            e = row[:, :9 * leaf_size].reshape(-1, 1, leaf_size, 9)
+            e = [e[..., i] for i in range(9)]
+            dxr, dyr, dzr = (a[r][:, :, None] for a in (dx, dy, dz))
+            tx, ty, tz = (a[r][:, :, None] - b
+                          for a, b in zip((ox, oy, oz), e[:3]))
+            px = dyr * e[8] - dzr * e[7]
+            py = dzr * e[6] - dxr * e[8]
+            pz = dxr * e[7] - dyr * e[6]
+            det = e[3] * px + e[4] * py + e[5] * pz
+            inv = 1.0 / torch.where(torch.abs(det) < 1e-6,
+                                    torch.ones_like(det), det)
+            uu = (tx * px + ty * py + tz * pz) * inv
+            qx = ty * e[5] - tz * e[4]
+            qy = tz * e[3] - tx * e[5]
+            qz = tx * e[4] - ty * e[3]
+            ww = (dxr * qx + dyr * qy + dzr * qz) * inv
+            tt = (e[6] * qx + e[7] * qy + e[8] * qz) * inv
+            ok = ((torch.abs(det) >= 1e-6) & (uu >= 0.0) & (uu <= 1.0)
+                  & (ww >= 0.0) & (uu + ww <= 1.0) & (tt > 1e-6)
+                  & (tt < bt[r][..., None]) & mask[r][..., None])
+            j = torch.argmin(torch.where(ok, tt, torch.inf), -1,
+                             keepdim=True)
+            hit = ok.any(-1)
+            pick = lambda a: torch.gather(a, -1, j)[..., 0]
+            bt[r] = torch.where(hit, pick(tt), bt[r])
+            bs[r] = torch.where(hit, (leaf * leaf_size).to(i32)[:, None]
+                                + j[..., 0].to(i32), bs[r])
+            bu[r] = torch.where(hit, pick(uu), bu[r])
+            bv[r] = torch.where(hit, pick(ww), bv[r])
+            p0 = ptr[r] - 1
+            cur[r] = stack[r, p0].long()
+            mask[r] = held[r, p0]
+            ptr[r] = p0
+        if any_hit:
+            done = ((bs[live] >= 0) | (bt[live] <= 0.0)).all(1)
+            cur[live] = torch.where(done, SENTINEL, cur[live])
+        live = live[cur[live] != SENTINEL]
+    visits = (lane_vis if lane_counts
+              else steps[:, None].expand(ng, group).contiguous())
+    flat = lambda a: a.reshape(-1)[:n]
+    hit = PacketHit(t=flat(bt), slot=flat(bs), u=flat(bu), v=flat(bv),
+                    visits=flat(visits))
+    return hit, counts, outside
+
+
+@pytest.fixture(scope="module")
+def dungeon():
+    """The small dungeon of tests/test_torch_dungeon.py under the
+    exact-replay configuration at 32x32: (its node and leaf tables, the
+    (args, kwargs) of the first sample's sorted bounce-0 walk3 launch:
+    3 x 1,024 lanes)."""
+    from test_torch_dungeon_exact import NAME, _cfg
+    from test_torch_dungeon import small_assets
+    from fsptbench.manifest import Manifest
+    from fsptbench.scenegen import Assets
+    from fspt_tpu_torch import load_scene_dict
+    from fspt_tpu_torch.core import integrator
+    from fspt_tpu_torch.runtime.renderer import Renderer
+    from fspt_tpu_torch.ops.traverse import capture_launches
+    c = Manifest().config(NAME)
+    scene = load_scene_dict(c["scene"], Assets(small_assets(c["assets"])),
+                            name=NAME, **c["loader"])
+    r = Renderer(scene, _cfg(c, 32, batch_spp=1), device="cpu")
+    return r.arrays, capture_launches(integrator, "packet_traverse3",
+                                      r.step)[1]
+
+
+def _refit_nodes():
+    """The node table of a refit frame: tests/test_torch_refit.py's scene,
+    its sphere moved and spun, its tables refit from the base frame."""
+    from fspt_tpu_torch.scene.refit import (build_refit_aux, delta_affines,
+                                            refit_arrays)
+    from fspt_tpu_torch.scene.schema import (_prop_defaults,
+                                             load_scene_dict,
+                                             merge_scene_props)
+    from fspt_tpu_torch.testing import (DictAssetLoader, icosphere_obj,
+                                        quad_obj)
+
+    def scene_dict(translate, angle):
+        return {"environment": [[0.2, 0.2, 0.3], [0.8, 0.9, 1.0]],
+                "cameraPos": [0.0, 0.4, 2.2], "cameraDir": [0.0, -0.18, -0.98],
+                "samples": 8,
+                "props": [{"path": "floor.obj", "scale": 6.0,
+                           "translate": [0, -0.5, 0]}],
+                "animated_props": [{"path": "sphere.obj", "scale": 0.4,
+                                    "translate": translate,
+                                    "rotate": [{"axis": [0, 1, 0],
+                                                "angle": angle}]}]}
+    loader = DictAssetLoader(texts={"sphere.obj": icosphere_obj(3),
+                                    "floor.obj": quad_obj()})
+    base_sd, moved_sd = scene_dict([0, 0, 0], 0.0), scene_dict(
+        [0.35, 0.15, -0.2], 0.8)
+    base = load_scene_dict(base_sd, loader)
+    props = lambda sd: [_prop_defaults(p) for p in merge_scene_props(sd)]
+    mats, trans = delta_affines(props(base_sd), props(moved_sd))
+    out = refit_arrays(base.to_torch("cpu"), base.meta,
+                       build_refit_aux(base), mats, trans)
+    return out.pk_nodes, base.meta.bvh_width
+
+
+@pytest.mark.parametrize("tables", ["setup8", "setup16", "dungeon",
+                                    "refit"])
+def test_child_boxes_contain_their_rows_boxes(setup, dungeon, tables):
+    """The premise of the mask rule, exactly: every box in a node row lies
+    inside that node's box in its parent's row."""
+    if tables.startswith("setup"):
+        width = int(tables[5:])
+        nodes = _t(setup[0][width].nodes)
+    elif tables == "dungeon":
+        nodes, width = dungeon[0].pk_nodes, 8
+    else:
+        nodes, width = _refit_nodes()
+    checked, outside = _nesting(nodes, width)
+    assert checked > 50 and outside == 0, (checked, outside)
+
+
+MASK_CASES = ["w8", "w8-any", "w8-lanes", "w16", "w16-any-lanes",
+              "dungeon", "dungeon-any", "dungeon-lanes"]
+
+
+def _mask_case(setup, dungeon, case):
+    """(args, kwargs) of a mask-rule case: the setup's rays over its 8- or
+    16-wide tables, or the small dungeon's sorted bounce launch."""
+    kind, *opts = case.split("-")
+    if kind == "dungeon":
+        args, kw = dungeon[1]
+        kw = dict(kw)
+    else:
+        pks, o, d, tm = setup
+        width = int(kind[1:])
+        pk = pks[width]
+        args = (_t(pk.nodes), _t(pk.leaves), V3(*map(_t, o)),
+                V3(*map(_t, d)), _t(tm))
+        kw = dict(leaf_size=8, stack_depth=_stack(pk, width),
+                  tree_width=width)
+    kw.update(any_hit="any" in opts, lane_counts="lanes" in opts)
+    return args, kw
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_mask_rule_equals_plain_version(setup, dungeon, case):
+    """The mask rule's walk equals the plain version bit for bit in t,
+    slot, u, v and visits (or lane counts), no ray passes a child test
+    outside its node's mask, and the masks leave most pairs untested."""
+    args, kw = _mask_case(setup, dungeon, case)
+    ref = packet_traverse3_reference(*args, **kw)
+    ours, counts, outside = _mask_walk(*args, **kw)
+    for f in ref._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+    assert outside == 0
+    if not kw["lane_counts"]:
+        assert counts["visits"] == int(ref.visits[::GROUPS["walk"]].sum())
+    assert 0 < counts["pairs"] < counts["visits"] * GROUPS["walk"]
+    if case == "dungeon":
+        assert (ref.slot >= 0).sum() > 500            # the rays hit walls
+
+
+# ---- walk3's masks on a card ----------------------------------------------
+# The kernel against the plain version bit for bit, and its work tally
+# (ops/traverse3.py `work_tally`) against the mask rule's counts, on the
+# cases above and on a full-size launch: the first sample's sorted bounce
+# launch of the exact-replay cell (fsptbench/configs/dungeon8_exact.json,
+# 512x512: 3 x 262,144 lanes over ~400,000 triangles).  A launch captured
+# in a CUDA graph and replayed equals the eager one.
+
+
+def _tallied(fn, *args, **kw):
+    """(hit, the work tally's growth) of one kernel launch."""
+    from fspt_tpu_torch.ops.traverse import check_stack_overflow
+    from fspt_tpu_torch.ops.traverse3 import tally_growth
+    held = []
+    tally = tally_growth(lambda: held.append(fn(*args, **kw)),
+                         args[0].device)
+    check_stack_overflow(args[0].device)
+    return held[0], tally
+
+
+def _to(args, device):
+    return tuple(V3(*(p.to(device) for p in a)) if isinstance(a, V3)
+                 else a.to(device) for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_cuda_walk3_tally_equals_mask_rule(setup, dungeon, cuda_device,
+                                            case):
+    args, kw = _mask_case(setup, dungeon, case)
+    args = _to(args, cuda_device)
+    ours, tally = _tallied(packet_traverse3, *args, **kw)
+    ref = packet_traverse3_reference(*args, **kw)
+    for f in ref._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+    _, counts, _ = _mask_walk(*args, **kw)
+    assert tally == counts
+
+
+@pytest.fixture(scope="module")
+def dungeon_card():
+    """The exact-replay cell's renderer on the card at full size, and the
+    (args, kwargs) of its first sample's sorted bounce launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fsptbench.manifest import Manifest
+    from fsptbench.run import Run
+    from fspt_tpu_torch.core import integrator
+    from fspt_tpu_torch.runtime.renderer import Renderer
+    from fspt_tpu_torch.ops.traverse import capture_launches
+    run = Run(Manifest(), "dungeon8_exact.progressive", 2_300_000_011, 1.0,
+              "cuda")
+    run.build()
+    r = Renderer(run.scene, run.cfg, device="cuda")
+    return r, capture_launches(integrator, "packet_traverse3", r.step)[1]
+
+
+@pytest.mark.cuda
+def test_cuda_walk3_dungeon_bounce_launch_bit_exact(dungeon_card):
+    _, (args, kw) = dungeon_card
+    assert args[2].x.shape == (3 * 512 * 512,)
+    ours, tally = _tallied(packet_traverse3, *args, **kw)
+    ref = packet_traverse3_reference(*args, **kw)
+    for f in ref._fields:
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+    _, counts, outside = _mask_walk(*args, **kw)
+    assert tally == counts and outside == 0
+    # the masks leave a small share of the union's pairs to test
+    assert counts["pairs"] < 0.2 * counts["visits"] * GROUPS["walk"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16])
+def test_cuda_walk3_graph_replay_equals_eager(setup, cuda_device, width):
+    """A launch captured in a CUDA graph and replayed twice gives the eager
+    launch's hits, and each replay adds the eager launch's work to the
+    tally."""
+    from fspt_tpu_torch.ops.traverse3 import work_tally
+    args, kw = _mask_case(setup, None, f"w{width}")
+    args = _to(args, cuda_device)
+    eager, tally = _tallied(packet_traverse3, *args, **kw)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        packet_traverse3(*args, **kw)                  # warm up on the side
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        held = packet_traverse3(*args, **kw)
+    for _ in range(2):
+        before = work_tally(cuda_device).clone()
+        for x in held:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        grown = (work_tally(cuda_device) - before).tolist()
+        for f in eager._fields:
+            assert torch.equal(getattr(held, f), getattr(eager, f)), f
+        assert grown == list(tally.values())
